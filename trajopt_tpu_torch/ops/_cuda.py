@@ -1,0 +1,127 @@
+"""Build, load and launch-check the hand-written CUDA kernels (``csrc/*.cu``).
+
+The kernels are compiled at first use by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface and loaded with `ctypes`.  The
+library lands in ``trajopt_tpu_torch/_build/`` under a name keyed by a hash
+of the sources and flags, so an edited source rebuilds and an unchanged one
+loads in milliseconds.  Nothing here runs at import time: importing the
+package on a machine without ``nvcc`` or a GPU is fine, and only a CUDA
+tensor reaching a wrapper triggers the build.
+
+``--use_fast_math`` is deliberately absent: the GJK stale test compares
+floats for equality and the GMW pivot rule relies on IEEE division/sqrt.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("topk.cu", "gjk.cu", "chol.cu")
+FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+# Launch counts per kernel.  Each wrapper adds one where it launches its
+# kernel and nowhere else, so a run can prove its main path used them.
+LAUNCHES = {"smallest_k": 0, "gjk_exact": 0, "mod_chol": 0, "chol_solve": 0}
+
+_lib: ctypes.CDLL | None = None
+build_info: dict = {}
+
+_vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "trajopt_smallest_k": [_vp, _vp, _vp, _int, _int, _int, _vp],
+    "trajopt_gjk_exact": [_vp, _vp, _vp, _vp, _int, _int, _int, _vp],
+    "trajopt_mod_chol": [_vp, _vp, _vp, _int, _int, _int, _float, _vp],
+    "trajopt_chol_solve": [_vp, _vp, _vp, _int, _int, _int, _vp],
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME); nvcc is needed "
+                           "to build trajopt_tpu_torch's kernels")
+    return str(Path(CUDA_HOME) / "bin" / "nvcc")
+
+
+def _build() -> Path:
+    nvcc = _nvcc()
+    h = hashlib.sha256()
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    out = BUILD_DIR / f"libtrajopt_kernels_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        build_info.update(path=str(out), seconds=0.0, cached=True, log="")
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".tmp{os.getpid()}")
+    cmd = [nvcc, *FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    build_info.update(path=str(out), seconds=time.perf_counter() - t0, cached=False,
+                      log=proc.stdout + proc.stderr)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(_build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        handle.trajopt_error_string.argtypes = [ctypes.c_int]
+        handle.trajopt_error_string.restype = ctypes.c_char_p
+        _lib = handle
+    return _lib
+
+
+def check_launch(err: int, name: str) -> None:
+    """Raise if a launch was refused (the kernel then never ran, and a later
+    synchronize would not report it); otherwise count the launch."""
+    if err != 0:
+        msg = lib().trajopt_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
+    LAUNCHES[name] += 1
+
+
+def require_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
+    """The kernels take contiguous float32 CUDA tensors and nothing else."""
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: the CUDA kernel takes float32, got {t.dtype}")
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: expected a CUDA (or CPU) tensor, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the CUDA kernel takes contiguous tensors")
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream

@@ -1,0 +1,233 @@
+"""Convex collision geometry: exact simplex GJK and the k-DOP axes.
+
+Port of the parts of `trajopt_tpu/ops/geometry.py` that the single-UAV
+solve runs.  `origin_simplex_dist` is the plain version of kernel K2
+(`ops/cuda_gjk.py`); `batched_origin_dist` is the solver's entry point and
+goes through K2's wrapper.
+
+Conservativeness (as in the reference): ``lb = min_i u_i . v / |v|`` is a
+certified lower bound on the distance at every iteration and ``dist`` an
+upper bound; safety decisions use ``lb``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+_EPS = 1e-12
+_FEAS_TOL = 1e-6
+_ALL_SUBSETS = [tuple(i for i in range(4) if (s >> i) & 1) for s in range(1, 16)]
+
+
+class HullDist(NamedTuple):
+    dist: torch.Tensor  # upper bound == |v| (converges to exact)
+    lb: torch.Tensor    # certified lower bound (<= true distance)
+    v: torch.Tensor     # [..., 3] vector from the query point to the closest hull point
+
+
+def _det4_cols(a):
+    """4x4 determinant by Laplace expansion along the first two rows."""
+    def m2(r0, r1, c0, c1):
+        return a[r0][c0] * a[r1][c1] - a[r0][c1] * a[r1][c0]
+
+    return (
+        m2(0, 1, 0, 1) * m2(2, 3, 2, 3)
+        - m2(0, 1, 0, 2) * m2(2, 3, 1, 3)
+        + m2(0, 1, 0, 3) * m2(2, 3, 1, 2)
+        + m2(0, 1, 1, 2) * m2(2, 3, 0, 3)
+        - m2(0, 1, 1, 3) * m2(2, 3, 0, 2)
+        + m2(0, 1, 2, 3) * m2(2, 3, 0, 1)
+    )
+
+
+def _subset_solve(subset, g):
+    """Unnormalized barycentric solve x = adj(G_S) e for a static subset.
+
+    Returns (xs, s): dict slot -> x, and s = sum(x).  Each subset size has
+    its own minimal closed form (a padded 4x4 adjugate loses ~3 digits to
+    cancellation on near-degenerate simplices)."""
+    k = len(subset)
+    if k == 1:
+        (i,) = subset
+        one = torch.ones_like(g[i][i])
+        return {i: one}, one
+    if k == 2:
+        i, j = subset
+        xi = g[j][j] - g[i][j]
+        xj = g[i][i] - g[i][j]
+        return {i: xi, j: xj}, xi + xj
+    if k == 3:
+        i, j, l = subset
+        a_, b_, c_ = g[i][i], g[i][j], g[i][l]
+        d_, e_ = g[j][j], g[j][l]
+        f_ = g[l][l]
+        adj11 = d_ * f_ - e_ * e_
+        adj12 = c_ * e_ - b_ * f_
+        adj13 = b_ * e_ - c_ * d_
+        adj22 = a_ * f_ - c_ * c_
+        adj23 = b_ * c_ - a_ * e_
+        adj33 = a_ * d_ - b_ * b_
+        xi = adj11 + adj12 + adj13
+        xj = adj12 + adj22 + adj23
+        xl = adj13 + adj23 + adj33
+        return {i: xi, j: xj, l: xl}, xi + xj + xl
+    xs = {}
+    one = torch.ones_like(g[0][0])
+    for col in range(4):
+        a = [[(one if c == col else g[r][c]) for c in range(4)] for r in range(4)]
+        xs[col] = _det4_cols(a)
+    return xs, xs[0] + xs[1] + xs[2] + xs[3]
+
+
+def _min_norm_simplex(w: torch.Tensor, active: torch.Tensor):
+    """Min-norm point of conv(w[active]) for a batch: w [N,4,3], active [N,4].
+
+    Enumerates all 15 subsets; each solves ``G_S lam = e, sum lam = 1``.
+    Every accepted candidate is a point in the hull (an upper bound) and the
+    subset carrying the true projection solves exactly, so the minimum over
+    subsets is the exact projection even when degenerate subsets produce
+    noise.  Returns (v [N,3], n2 [N], sub [N,4] bool).
+    """
+    gm = w @ w.transpose(-1, -2)
+    g = [[gm[:, i, j] for j in range(4)] for i in range(4)]
+    n = w.shape[0]
+    best_n2 = w.new_full((n,), float("inf"))
+    best_v = w.new_zeros((n, 3))
+    best_sub = torch.zeros((n, 4), dtype=torch.bool, device=w.device)
+    slots = torch.arange(4, device=w.device)
+    for subset in _ALL_SUBSETS:
+        xs, s = _subset_solve(subset, g)
+        feas = s > 1e-12
+        inv = 1.0 / torch.where(feas, s, 1.0)
+        for i in subset:
+            feas = feas & active[:, i]
+        v = w.new_zeros((n, 3))
+        tot = w.new_zeros((n,))
+        for i in subset:
+            lam = xs[i] * inv
+            feas = feas & torch.isfinite(lam) & (lam >= -_FEAS_TOL)
+            lam_pos = torch.clamp(lam, min=0.0)
+            tot = tot + lam_pos
+            v = v + lam_pos[:, None] * w[:, i]
+        # degeneracy guard: affinely dependent subsets (collinear control
+        # points of straight segments) give roundoff-noise coefficients that
+        # pass the -tol test one by one but do not sum to 1; renormalizing
+        # and flooring tot keeps v a genuine convex combination
+        feas = feas & (tot > 0.5)
+        v = v / torch.clamp(tot, min=0.5)[:, None]
+        n2 = (v * v).sum(-1)
+        score = torch.where(feas, n2, float("inf"))
+        take = score < best_n2
+        best_n2 = torch.where(take, score, best_n2)
+        best_v = torch.where(take[:, None], v, best_v)
+        in_sub = torch.stack([slots == i for i in subset]).any(0)
+        best_sub = torch.where(take[:, None], in_sub, best_sub)
+    return best_v, best_n2, best_sub
+
+
+def origin_simplex_dist(u: torch.Tensor, iters: int = 12) -> HullDist:
+    """Distance from the origin to conv(u) by simplex GJK, u [..., m, 3].
+
+    Sound (lb <= true <= dist) at any iteration count; exact up to roundoff
+    once the support loop has converged.
+    """
+    lead, m = u.shape[:-2], u.shape[-2]
+    u = u.reshape(-1, m, 3)
+    n = u.shape[0]
+    rows = torch.arange(n, device=u.device)
+    scale = torch.clamp(u.abs().amax(dim=(1, 2)), min=1e-30)
+    us = u / scale[:, None, None]
+    i0 = torch.argmin((us * us).sum(-1), dim=1)
+    w = us[rows, i0][:, None, :].expand(n, 4, 3).clone()
+    active = torch.zeros((n, 4), dtype=torch.bool, device=u.device)
+    active[:, 0] = True
+    tol = 100 * torch.finfo(u.dtype).eps
+    lb_best = u.new_full((n,), -float("inf"))
+    v_best = u.new_zeros((n, 3))
+    n2_best = u.new_full((n,), float("inf"))
+    done = torch.zeros(n, dtype=torch.bool, device=u.device)
+    for _ in range(iters):
+        v, n2, sub = _min_norm_simplex(w, active)
+        better = n2 < n2_best
+        v_best = torch.where(better[:, None], v, v_best)
+        n2_best = torch.where(better, n2, n2_best)
+        vn = torch.sqrt(torch.clamp(n2, min=_EPS))
+        scores = (us @ v[:, :, None])[..., 0]                      # [N, m]
+        lb_best = torch.maximum(lb_best, scores.amin(-1) / vn)
+        s = torch.argmin(scores, dim=-1)
+        us_s = us[rows, s]                                         # [N, 3]
+        # stale: the support vertex is already an active slot (an f32-
+        # degenerate face solve; iterating further would cycle)
+        stale = (active & (w == us_s[:, None, :]).all(-1)).any(-1)
+        done = (
+            done
+            | (scores[rows, s] >= n2 - tol * torch.clamp(n2, min=1.0))
+            | sub.all(-1)
+            | stale
+        )
+        free = torch.argmin(sub.to(torch.uint8), dim=-1)           # first inactive slot
+        w_new = w.clone()
+        w_new[rows, free] = us_s
+        active_new = sub.clone()
+        active_new[rows, free] = True
+        w = torch.where(done[:, None, None], w, w_new)
+        active = torch.where(done[:, None], active, active_new)
+        # a finished problem recomputes the same values every iteration
+        if bool(done.all()):
+            break
+    v, n2, _ = _min_norm_simplex(w, active)
+    better = n2 < n2_best
+    v = torch.where(better[:, None], v, v_best)
+    n2 = torch.where(better, n2, n2_best)
+    dist = torch.sqrt(torch.clamp(n2, min=0.0)) * scale
+    lb = torch.minimum(lb_best * scale, dist)
+    return HullDist(
+        dist=dist.reshape(lead), lb=lb.reshape(lead), v=(v * scale[:, None]).reshape(lead + (3,))
+    )
+
+
+def point_hull_distance(verts: torch.Tensor, point: torch.Tensor, iters: int = 24) -> HullDist:
+    """Distance from ``point`` [..., 3] to the hull of ``verts`` [..., m, 3]."""
+    return origin_simplex_dist(verts - point[..., None, :], iters)
+
+
+def check_gjk_route(cfg, device: torch.device) -> None:
+    """On the card GJK always runs kernel K2: there is no plain path for CUDA
+    tensors, so ``use_pallas_gjk=False`` (which selects the plain path in the
+    JAX package) is refused there.  It has no effect on the CPU."""
+    if torch.device(device).type == "cuda" and cfg.use_pallas_gjk is False:
+        raise ValueError(
+            "use_pallas_gjk=False: the torch port runs GJK on CUDA only through "
+            "its kernel; leave use_pallas_gjk at None or True"
+        )
+
+
+def batched_origin_dist(diffsets: torch.Tensor, iters: int) -> HullDist:
+    """Distance from the origin to conv(diffsets[i]) for a flat batch
+    [N, m, 3], exact simplex GJK with min(iters, 16) iterations (K2)."""
+    from . import cuda_gjk
+
+    return cuda_gjk.gjk_exact(diffsets.contiguous(), min(iters, 16))
+
+
+def kdop_axes() -> np.ndarray:
+    """The reference's 49 normalized k-DOP directions (CCDUtils.cpp:56-119)."""
+    base = [
+        (1, 0, 0), (0, 1, 0), (0, 0, 1),
+        (1, 1, 1), (1, -1, 1), (1, 1, -1), (1, -1, -1),
+        (0, 1, 1), (0, 1, -1), (1, 0, 1), (1, 0, -1), (1, 1, 0), (1, -1, 0),
+        (0, 2, 1), (0, 2, -1), (0, 1, 2), (0, 1, -2),
+        (2, 0, 1), (2, 0, -1), (1, 0, 2), (1, 0, -2),
+        (2, 1, 0), (2, -1, 0), (1, 2, 0), (1, -2, 0),
+        (1, 2, 1), (1, 2, -1), (1, -2, 1), (-1, 2, 1),
+        (1, 1, 2), (1, 1, -2), (1, -1, 2), (-1, 1, 2),
+        (2, 1, 1), (2, 1, -1), (2, -1, 1), (-2, 1, 1),
+        (2, 2, 1), (2, 2, -1), (2, -2, 1), (-2, 2, 1),
+        (2, 1, 2), (2, 1, -2), (2, -1, 2), (-2, 1, 2),
+        (1, 2, 2), (1, 2, -2), (1, -2, 2), (-1, 2, 2),
+    ]
+    a = np.asarray(base, dtype=np.float64)
+    return a / np.linalg.norm(a, axis=1, keepdims=True)

@@ -1,0 +1,183 @@
+"""Reduced arrowhead KKT assembly and Schur-complement Newton solve.
+
+Port of `trajopt_tpu/ops/kkt.py`.  The spline block A couples the free
+control-point coordinates (block-banded: adjacent pieces share 3 stored
+rows); one scalar time variable borders it:
+
+    [A  b] [ds]   [gs]          s   = h_tt - b^T A^-1 b
+    [b^T c] [dt] = -[gt]   =>   dt  = -(gt - b^T A^-1 gs) / s
+                                ds  = -A^-1 gs - dt * A^-1 b
+
+Systems with ns <= 64 factor with kernels K3/K4 (`ops/cuda_chol.py`);
+larger ones with the block-tridiagonal factorization below.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..types import SplineConsts
+from . import cuda_chol
+from .gradients import N_CP
+
+# blocks at or below this size use the modified-Cholesky kernels
+_UNROLL_MAX = 64
+
+_BT_BLOCK = 18  # 6 stored rows x 3 coords: with 18-blocks A is block-tridiagonal
+
+
+def _factor_block_tridiag(a: torch.Tensor) -> torch.Tensor:
+    """Cholesky of the block-banded spline KKT, one 18x18 block step at a
+    time (L is block-bidiagonal).  Returns the dense [..., ns, ns] lower
+    factor; a non-PD block gives NaNs, as the JAX factorization does."""
+    ns = a.shape[-1]
+    nb = -(-ns // _BT_BLOCK)
+    pad = nb * _BT_BLOCK - ns
+    batch = a.shape[:-2]
+    if pad:
+        eye_pad = torch.eye(ns + pad, dtype=a.dtype, device=a.device)[ns:]
+        a = torch.cat(
+            [torch.cat([a, a.new_zeros(batch + (ns, pad))], -1),
+             torch.broadcast_to(eye_pad, batch + (pad, ns + pad))],
+            -2,
+        )
+    k = _BT_BLOCK
+    blocks = a.reshape(batch + (nb, k, nb, k))
+    full = a.new_zeros(batch + (nb, k, nb, k))
+    l_prev = torch.broadcast_to(torch.eye(k, dtype=a.dtype, device=a.device), batch + (k, k))
+    for b in range(nb):
+        d_b = blocks[..., b, :, b, :]
+        if b:
+            e_b = blocks[..., b, :, b - 1, :]
+            # X_b = E_b L_{b-1}^{-T}  (solve L_{b-1} X^T = E^T)
+            x = torch.linalg.solve_triangular(l_prev, e_b.transpose(-1, -2), upper=False)
+            x = x.transpose(-1, -2)
+            full[..., b, :, b - 1, :] = x
+            d_b = d_b - x @ x.transpose(-1, -2)
+        l_b, info = torch.linalg.cholesky_ex(d_b)
+        l_b = torch.where((info == 0)[..., None, None], l_b, float("nan"))
+        full[..., b, :, b, :] = l_b
+        l_prev = l_b
+    return full.reshape(batch + (nb * k, nb * k))[..., :ns, :ns]
+
+
+def _factor(a: torch.Tensor) -> torch.Tensor:
+    """Lower factor of PD(ish) blocks [..., ns, ns].  Small blocks go to the
+    modified Cholesky (K3), whose GMW boosts engage only if roundoff made a
+    block numerically indefinite (`correct_direction` then refines toward
+    the true system)."""
+    ns = a.shape[-1]
+    if ns <= _UNROLL_MAX:
+        return cuda_chol.mod_chol(a.contiguous())[0]
+    return _factor_block_tridiag(a)
+
+
+def _factor_solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve L L^T x = b given `_factor`'s output."""
+    ns = l.shape[-1]
+    if ns <= _UNROLL_MAX:
+        return cuda_chol.chol_solve(l.contiguous(), b.contiguous())
+    vec = b.ndim == l.ndim - 1
+    x = torch.cholesky_solve(b[..., None] if vec else b, l, upper=False)
+    return x[..., 0] if vec else x
+
+
+class ReducedKKT(NamedTuple):
+    """Per-robot reduced system (free spline coords + time scalar)."""
+
+    a: torch.Tensor     # [ns, ns] spline block (SPD after per-piece repair)
+    b: torch.Tensor     # [ns]     time coupling column
+    gs: torch.Tensor    # [ns]     spline gradient
+    gt: torch.Tensor    # []       time gradient
+    htt: torch.Tensor   # []       time diagonal
+
+
+def free_coord_indices(consts: SplineConsts) -> torch.Tensor:
+    """[P, 18] flat free-DOF index per piece-local coordinate; pinned coords
+    (two stored rows at each end) map to the dummy slot ``ns``."""
+    t = consts.trajectory_num
+    ns = 3 * (t - 4)
+    rows = consts.piece_idx
+    ok = (rows >= 2) & (rows <= t - 3)
+    flat = 3 * (rows - 2)[..., None] + torch.arange(3, device=rows.device)
+    flat = torch.where(ok[..., None], flat, ns)
+    return flat.reshape(consts.piece_num, 3 * N_CP)
+
+
+def assemble_reduced(consts: SplineConsts, g: torch.Tensor, h: torch.Tensor) -> ReducedKKT:
+    """Scatter-add [P,19] grads and [P,19,19] Hessians into the reduced system."""
+    t = consts.trajectory_num
+    ns = 3 * (t - 4)
+    ix = free_coord_indices(consts)               # [P, 18]
+    k = 3 * N_CP
+    g_cp, g_t = g[:, :k], g[:, k]
+    h_cp, h_ct, h_tt = h[:, :k, :k], h[:, :k, k], h[:, k, k]
+
+    flat2 = (ix[:, :, None] * (ns + 1) + ix[:, None, :]).reshape(-1)
+    a = h.new_zeros((ns + 1) * (ns + 1)).index_add_(0, flat2, h_cp.reshape(-1))
+    a = a.reshape(ns + 1, ns + 1)[:ns, :ns]
+    b = h.new_zeros(ns + 1).index_add_(0, ix.reshape(-1), h_ct.reshape(-1))[:ns]
+    gs = g.new_zeros(ns + 1).index_add_(0, ix.reshape(-1), g_cp.reshape(-1))[:ns]
+    return ReducedKKT(a=a, b=b, gs=gs, gt=g_t.sum(), htt=h_tt.sum())
+
+
+class LocalSolve(NamedTuple):
+    """Robot-local solve results; enough to finish either time mode."""
+
+    ainv_gs: torch.Tensor   # [ns]
+    ainv_b: torch.Tensor    # [ns]
+    schur_s: torch.Tensor   # [] h_tt - b^T A^-1 b
+    schur_r: torch.Tensor   # [] gt  - b^T A^-1 gs
+    gnorm: torch.Tensor     # [] norm of the full reduced gradient
+    chol: torch.Tensor      # [ns, ns] lower Cholesky factor of A
+
+
+def local_solve(kkt: ReducedKKT) -> LocalSolve:
+    # tiny relative ridge keeps the f32 factorization of the (PSD by
+    # construction) block safely positive definite
+    ns = kkt.a.shape[-1]
+    ridge = 1e-6 * torch.diagonal(kkt.a, dim1=-2, dim2=-1).sum(-1) / ns
+    a = kkt.a + ridge[..., None, None] * torch.eye(ns, dtype=kkt.a.dtype, device=kkt.a.device)
+    rhs = torch.stack([kkt.gs, kkt.b], dim=-1)           # [..., ns, 2]
+    chol = _factor(a)
+    sol = _factor_solve(chol, rhs)
+    ainv_gs, ainv_b = sol[..., 0], sol[..., 1]
+    schur_s = kkt.htt - torch.einsum("...i,...i->...", kkt.b, ainv_b)
+    schur_r = kkt.gt - torch.einsum("...i,...i->...", kkt.b, ainv_gs)
+    gnorm = torch.sqrt(torch.sum(kkt.gs ** 2, dim=-1) + kkt.gt ** 2)
+    return LocalSolve(ainv_gs, ainv_b, schur_s, schur_r, gnorm, chol)
+
+
+def finish_direction(
+    ls: LocalSolve, schur_s_total: torch.Tensor, schur_r_total: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Newton direction from the Schur scalars.  The floor on ``s`` is
+    relative: cancellation in ``htt - b^T A^-1 b`` can make the raw scalar
+    tiny or negative."""
+    s = torch.maximum(schur_s_total, 1e-5 * torch.clamp(schur_s_total.abs(), min=1.0))
+    dt = torch.broadcast_to(-schur_r_total / s, ls.ainv_gs.shape[:-1])
+    ds = -ls.ainv_gs - dt[..., None] * ls.ainv_b
+    return ds, dt
+
+
+def correct_direction(
+    red: ReducedKKT, ls: LocalSolve, ds: torch.Tensor, dt: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One iterative-refinement residual for the arrowhead system:
+    (r_s, r_t, A^-1 r_s).  Recovers the digits f32 loses on ill-conditioned
+    blocks."""
+    r_s = torch.einsum("...ij,...j->...i", red.a, ds) + red.b * dt[..., None] + red.gs
+    r_t = torch.einsum("...i,...i->...", red.b, ds) + red.htt * dt + red.gt
+    ainv_rs = _factor_solve(ls.chol, r_s)
+    return r_s, r_t, ainv_rs
+
+
+def spread_direction(consts: SplineConsts, ds: torch.Tensor) -> torch.Tensor:
+    """[ns] free-coordinate direction -> [T,3] stored-row direction (pinned
+    rows zero)."""
+    t = consts.trajectory_num
+    d = ds.new_zeros((t, 3))
+    d[2 : t - 2] = ds.reshape(t - 4, 3)
+    return d

@@ -1,0 +1,360 @@
+"""Single-robot consensus-ADMM iteration.
+
+Port of `trajopt_tpu/solver/admm.py` (the path without the plane cache).
+One `admm_step` runs the reference's three phases: separating-plane
+generation, the spline Newton step with a CCD-clamped Armijo line search,
+and the per-piece slack Newton step with dual ascent.  Each `lax.cond` of
+the JAX step is a Python branch here, i.e. one device-to-host sync:
+`armijo_spline` (step0 accepted?), each further stage of a staged ladder,
+and the two gates inside the CCD.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch.func import vmap
+
+from trajopt_tpu.config import TrajOptConfig
+
+from ..ops import broadphase as bp
+from ..ops import ccd as ccd_ops
+from ..ops import cuda_chol
+from ..ops import cuda_topk
+from ..ops import energies as en
+from ..ops import geometry as geo
+from ..ops import gradients as gr
+from ..ops import kkt
+from ..types import Planes, Scene, SolverState, SplineConsts, StepDiag
+
+_ARMIJO_C = 1e-4   # Optimization3D_admm.h:537
+_SHRINK = 0.8      # Optimization3D_admm.h:542 / Step.h:97
+
+
+# ---------------------------------------------------------------------------
+# Phase 1: separating planes
+# ---------------------------------------------------------------------------
+
+
+def _fit_obstacle_planes(cfg: TrajOptConfig, hull_f, pts_f):
+    """Batched point-vs-hull GJK -> offset separating planes.
+    ``hull_f`` [B,n,3], ``pts_f`` [B,3] -> (c [B,3], d [B], valid [B])."""
+    geo.check_gjk_route(cfg, hull_f.device)
+    diff = hull_f - pts_f[:, None, :]
+    hd = geo.batched_origin_dist(diff, cfg.gjk_iters)
+    vn = torch.clamp(hd.dist, min=1e-12)
+    c = hd.v / vn[:, None]
+    d = -torch.einsum("nd,nd->n", c, pts_f) - cfg.offset
+    # near-contact feasibility clamp: under f32 the witness direction can
+    # lose the last digits of "hull distance along c > offset" exactly when
+    # hulls are a hair above offset; raising d only weakens the obstacle
+    # side, keeps the plane active and the incumbent feasible
+    s_min = torch.einsum("nmd,nd->nm", hull_f, c).amin(dim=1)
+    d = torch.maximum(d, 1e-3 * cfg.margin - s_min)
+    valid = hd.dist <= cfg.offset + cfg.margin
+    return c, d, valid
+
+
+def separate_planes(
+    consts: SplineConsts, cfg: TrajOptConfig, spline: torch.Tensor, scene: Scene
+) -> tuple[Planes, torch.Tensor]:
+    """Fixed-K separating-plane table for every subdivided segment, and the
+    budget-overflow flag.  One flat batch of GJK solves over the (segment,
+    candidate) pairs, compacted to the ``plane_gjk_budget`` nearest in-radius
+    pairs when the table is larger than the budget."""
+    if cfg.optimal_plane:
+        raise NotImplementedError("optimal_plane=True is not ported to torch yet")
+    hull = en.seg_cps(consts, spline)                       # [P,R,n,3]
+    radius = cfg.offset + cfg.margin
+    cand = bp.topk_candidates(hull, scene, radius, cfg.max_planes,
+                              coarse_k=cfg.broadphase_coarse_k)
+    pts = scene.points[cand.idx]                            # [P,R,K,3]
+    p, r, k, _ = pts.shape
+    n = hull.shape[-2]
+    nf = p * r * k
+    flat_mask = cand.mask.reshape(-1)
+    dtype, device = spline.dtype, spline.device
+    if nf > cfg.plane_gjk_budget:
+        budget = cfg.plane_gjk_budget
+        overflow = flat_mask.sum() > budget
+        d2f = torch.where(flat_mask, cand.d2.reshape(-1), float("inf"))
+        # the JAX step calls lax.top_k directly here (not the Pallas kernel)
+        _, sel = cuda_topk.smallest_k_plain(d2f, budget)
+        hull_f = hull.reshape(p * r, n, 3)[sel // k]
+        pts_f = pts.reshape(-1, 3)[sel]
+        c, d, valid = _fit_obstacle_planes(cfg, hull_f, pts_f)
+        c_full = torch.zeros((nf, 3), dtype=dtype, device=device)
+        c_full[sel] = c
+        d_full = torch.zeros((nf,), dtype=dtype, device=device)
+        d_full[sel] = d
+        ok_full = torch.zeros((nf,), dtype=torch.bool, device=device)
+        ok_full[sel] = flat_mask[sel] & valid
+        planes = Planes(c=c_full.reshape(p, r, k, 3), d=d_full.reshape(p, r, k),
+                        mask=ok_full.reshape(p, r, k))
+    else:
+        overflow = torch.zeros((), dtype=torch.bool, device=device)
+        hull_f = torch.broadcast_to(hull[:, :, None], (p, r, k, n, 3)).reshape(-1, n, 3)
+        c, d, valid = _fit_obstacle_planes(cfg, hull_f, pts.reshape(-1, 3))
+        planes = Planes(c=c.reshape(p, r, k, 3), d=d.reshape(p, r, k),
+                        mask=cand.mask & valid.reshape(p, r, k))
+    return planes, overflow
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: spline Newton + CCD clamp + Armijo
+# ---------------------------------------------------------------------------
+
+
+class SplineDirection(NamedTuple):
+    direction: torch.Tensor    # [T,3]
+    t_direction: torch.Tensor  # []
+    wolfe: torch.Tensor        # []
+    gnorm: torch.Tensor        # []
+
+
+def spline_direction(
+    consts: SplineConsts, cfg: TrajOptConfig, state: SolverState, planes: Planes
+) -> SplineDirection:
+    """Reduced Newton direction with one iterative-refinement round and a
+    NaN-proof steepest-descent fallback."""
+    g, h = gr.piece_grads_and_hessians(
+        consts, cfg, state.spline, state.piece_time, planes,
+        state.p_slack, state.t_slack, state.p_lambda, state.t_lambda,
+    )
+    red = kkt.assemble_reduced(consts, g, h)
+    ls = kkt.local_solve(red)
+    ds, dt = kkt.finish_direction(ls, ls.schur_s, ls.schur_r)
+    rs, rt, ainv_rs = kkt.correct_direction(red, ls, ds, dt)
+    s_safe = torch.maximum(ls.schur_s, 1e-5 * torch.clamp(ls.schur_s.abs(), min=1.0))
+    cdt = -(rt - red.b @ ainv_rs) / s_safe
+    ds = ds + (-ainv_rs - cdt * ls.ainv_b)
+    dt = dt + cdt
+    wolfe = -(ds @ red.gs + dt * red.gt)
+    finite = torch.isfinite(wolfe) & torch.all(torch.isfinite(ds)) & torch.isfinite(dt)
+    bad = ~finite | ~(wolfe > 0)
+    ds = torch.where(bad, -red.gs, ds)
+    dt = torch.where(bad, -red.gt, dt)
+    wolfe = torch.where(bad, torch.sum(red.gs ** 2) + red.gt ** 2, wolfe)
+    return SplineDirection(
+        direction=kkt.spread_direction(consts, ds), t_direction=dt, wolfe=wolfe,
+        gnorm=ls.gnorm,
+    )
+
+
+def step_candidates(cfg: TrajOptConfig, dtype, device, start=1.0) -> torch.Tensor:
+    """The geometric step ladder start * 0.8^k, k = 0..max_line_search-1."""
+    k = torch.arange(cfg.max_line_search, dtype=dtype, device=device)
+    return start * torch.pow(torch.full((), _SHRINK, dtype=dtype, device=device), k)
+
+
+def _first_true(ok: torch.Tensor, dim=0) -> torch.Tensor:
+    """Index of the first True along ``dim`` (== its length if none)."""
+    return torch.argmax(ok.to(torch.uint8), dim=dim) + torch.where(
+        torch.any(ok, dim=dim), 0, ok.shape[dim]
+    )
+
+
+def staged_ladder_ok(eval_ok, ladder: torch.Tensor, stage: int = 8) -> torch.Tensor:
+    """Test the first ``stage`` rungs; only if some column still lacks an
+    accept, recurse on the tail with a doubled stage (8, 16, 32, ...).
+    ``eval_ok(sub_ladder [M, ...]) -> bool [M, cols...]``."""
+    s = ladder.shape[0]
+    n1 = min(stage, s)
+    ok1 = eval_ok(ladder[:n1])
+    if n1 == s:
+        return ok1
+    if bool(torch.all(torch.any(ok1, dim=0))):
+        ok2 = torch.zeros((s - n1,) + ok1.shape[1:], dtype=torch.bool, device=ok1.device)
+    else:
+        ok2 = staged_ladder_ok(eval_ok, ladder[n1:], stage=2 * stage)
+    return torch.cat([ok1, ok2], dim=0)
+
+
+def _with_floor_fallback(ok: torch.Tensor) -> torch.Tensor:
+    """Accept the last rung unconditionally (the ladder's floor)."""
+    return torch.cat([ok[:-1], torch.ones_like(ok[-1:])], dim=0)
+
+
+def rung_floor(cfg: TrajOptConfig, s: torch.Tensor) -> torch.Tensor:
+    """Largest ladder rung 0.8^k (k < max_line_search) strictly below the
+    certified limit ``s`` (0 if none)."""
+    shrink = torch.full((), _SHRINK, dtype=s.dtype, device=s.device)
+    k = torch.ceil(torch.log(torch.clamp(s, min=1e-30)) / torch.log(shrink))
+    k = torch.clamp(k, min=0.0)
+    step = shrink ** k
+    # strict: a rung landing exactly on the supremum must shrink once more
+    step = torch.where(step >= s, step * _SHRINK, step)
+    return torch.where((s <= 0) | (k >= cfg.max_line_search), 0.0, step)
+
+
+def ccd_step(
+    consts: SplineConsts,
+    cfg: TrajOptConfig,
+    spline: torch.Tensor,
+    direction: torch.Tensor,
+    scene: Scene,
+) -> torch.Tensor:
+    """Largest step 0.8^k whose swept control hulls provably keep clearance
+    > offset from every obstacle point (Step::position_step)."""
+    geo.check_gjk_route(cfg, spline.device)
+    hull = en.seg_cps(consts, spline)[None]
+    dhull = en.seg_cps(consts, direction)[None]
+    s = ccd_ops.obstacle_max_step_direct(
+        hull, dhull, scene.points, scene.mask, cfg.offset, cfg.gjk_iters,
+        s1_slots=max(8, cfg.max_ccd_candidates),
+        n_slots=cfg.ccd_gjk_slots, seg_budget=cfg.ccd_seg_budget,
+    )[0]
+    return rung_floor(cfg, s)
+
+
+def armijo_spline(
+    consts: SplineConsts,
+    cfg: TrajOptConfig,
+    state: SolverState,
+    planes: Planes,
+    sd: SplineDirection,
+    step0: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backtracking line search on the spline AL energy.
+    Returns (spline', piece_time', step)."""
+    t0, dt = state.piece_time, sd.t_direction
+    step0 = torch.where(t0 + step0 * dt <= 0, -0.95 * t0 / dt, step0)
+
+    state_u = SolverState(*(x[None] for x in state))
+    planes_u = Planes(*(x[None] for x in planes))
+    ttab = en.build_trial_tables(consts, cfg, state_u, planes_u, sd.direction[None], dt[None])
+
+    def trial_energy(step):
+        return en.trial_energy(consts, cfg, ttab, step[None])[0]
+
+    e0 = trial_energy(torch.zeros((), dtype=t0.dtype, device=t0.device))
+
+    def accepted(step):
+        return e0 - _ARMIJO_C * sd.wolfe * step >= trial_energy(step)
+
+    if bool(accepted(step0)):
+        step = step0
+    else:
+        steps = step_candidates(cfg, t0.dtype, t0.device) * step0
+        ok = _with_floor_fallback(staged_ladder_ok(vmap(accepted), steps))
+        step = steps.gather(0, _first_true(ok)[None])[0]
+    return state.spline + step * sd.direction, t0 + step * dt, step
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: slack + dual update
+# ---------------------------------------------------------------------------
+
+
+def _slack_freeze_mask(piece_num: int, dtype, device) -> torch.Tensor:
+    """[P,19] 1.0 for free local coords; the first piece freezes CP rows 0-1,
+    the last rows n-1, n."""
+    m = torch.ones((piece_num, gr.N_LOC), dtype=dtype, device=device)
+    m[0, 0:6] = 0.0
+    m[piece_num - 1, 12:18] = 0.0
+    return m
+
+
+def slack_update(
+    consts: SplineConsts, cfg: TrajOptConfig, state: SolverState
+) -> tuple[SolverState, torch.Tensor]:
+    """Per-piece slack Newton + Armijo + dual ascent, batched over pieces.
+    Returns (new_state, consensus_residual)."""
+    if cfg.psd_method != "gmw":
+        raise NotImplementedError(
+            f"psd_method={cfg.psd_method!r} is not ported to torch; use 'gmw'"
+        )
+    p_num = consts.piece_num
+    c_spline = torch.einsum("pij,pjd->pid", consts.convert, en.piece_cps(consts, state.spline))
+    xs = torch.cat([state.p_slack.reshape(p_num, -1), state.t_slack[:, None]], dim=1)
+
+    def local(x, cs, pl, tl):
+        return gr.local_slack_energy(x, cs, state.piece_time, pl, tl, consts.m_dyn, cfg)
+
+    g, h = vmap(lambda x, cs, pl, tl: gr.grad_and_hess(local, x, cs, pl, tl))(
+        xs, c_spline, state.p_lambda, state.t_lambda
+    )
+    # freeze pinned end coords: zero their gradient, identity Hessian rows
+    m = _slack_freeze_mask(p_num, xs.dtype, xs.device)
+    g = g * m
+    eye = torch.eye(gr.N_LOC, dtype=h.dtype, device=h.device)
+    h = torch.where((m[:, :, None] * m[:, None, :]) > 0, h, eye[None])
+    # fused repair + factor + solve (K3 then K4 on the card)
+    chol_l, _ = cuda_chol.mod_chol(h.contiguous())
+    d = -cuda_chol.chol_solve(chol_l, g.contiguous())
+    d = d * m
+    wolfe = -torch.sum(d * g, dim=1)
+    # NaN-proof steepest-descent fallback per piece
+    bad = ~(torch.all(torch.isfinite(d), dim=1) & (wolfe > 0))
+    d = torch.where(bad[:, None], -g, d)
+    wolfe = torch.where(bad, torch.sum(g * g, dim=1), wolfe)
+
+    d_cp = d[:, : 3 * gr.N_CP].reshape(p_num, gr.N_CP, 3)
+    d_t = d[:, 3 * gr.N_CP]
+    step = torch.ones((p_num,), dtype=xs.dtype, device=xs.device)
+    step = torch.where(state.t_slack + step * d_t <= 0, -0.95 * state.t_slack / d_t, step)
+
+    e0 = en.slack_energy(
+        consts, cfg, c_spline, state.piece_time,
+        state.p_slack, state.t_slack, state.p_lambda, state.t_lambda,
+    )
+
+    def trial(step_vec):
+        ev = en.slack_energy(
+            consts, cfg, c_spline, state.piece_time,
+            state.p_slack + step_vec[:, None, None] * d_cp,
+            state.t_slack + step_vec * d_t,
+            state.p_lambda, state.t_lambda,
+        )
+        return torch.where(torch.isnan(ev), float("inf"), ev)
+
+    ladder = step_candidates(cfg, xs.dtype, xs.device)[:, None] * step[None, :]   # [S,P]
+    ok = staged_ladder_ok(vmap(lambda sv: e0 - _ARMIJO_C * wolfe * sv >= trial(sv)), ladder)
+    ok = _with_floor_fallback(ok)
+    step = torch.gather(ladder, 0, _first_true(ok, dim=0)[None, :])[0]
+
+    p_slack = state.p_slack + step[:, None, None] * d_cp
+    t_slack = state.t_slack + step * d_t
+    p_lambda = state.p_lambda + cfg.mu * (c_spline - p_slack)
+    t_lambda = state.t_lambda + cfg.mu * (state.piece_time - t_slack)
+    residual = torch.sqrt(
+        torch.sum((c_spline - p_slack) ** 2) + torch.sum((state.piece_time - t_slack) ** 2)
+    )
+    new_state = state._replace(
+        p_slack=p_slack, t_slack=t_slack, p_lambda=p_lambda, t_lambda=t_lambda
+    )
+    return new_state, residual
+
+
+# ---------------------------------------------------------------------------
+# Full iteration
+# ---------------------------------------------------------------------------
+
+
+def admm_step(
+    consts: SplineConsts, cfg: TrajOptConfig, state: SolverState, scene: Scene
+) -> tuple[SolverState, StepDiag]:
+    """One full ADMM iteration (Optimization3D_admm::optimization)."""
+    # Full-f32 matmuls are required: the KKT blocks reach condition ~1e6 and
+    # reduced-precision passes give NaN Cholesky pivots.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    planes, overflow = separate_planes(consts, cfg, state.spline, scene)
+    sd = spline_direction(consts, cfg, state, planes)
+    step_ccd = ccd_step(consts, cfg, state.spline, sd.direction, scene)
+    spline, piece_time, step = armijo_spline(consts, cfg, state, planes, sd, step_ccd)
+    state = state._replace(spline=spline, piece_time=piece_time)
+    state, residual = slack_update(consts, cfg, state)
+    ev = en.spline_energy(consts, cfg, state, planes)
+    diag = StepDiag(
+        gnorm=sd.gnorm,
+        consensus_residual=residual,
+        step=step,
+        ccd_step=step_ccd,
+        n_planes=planes.mask.sum(),
+        energy=ev.value,
+        infeasible=ev.infeasible,
+        plane_overflow=overflow,
+    )
+    return state, diag

@@ -1,0 +1,135 @@
+"""Outer ADMM loop driver (host-stepped).
+
+Port of `trajopt_tpu/solver/driver.py::solve` and its start-up checks.
+Convergence gate: ``iter > 1 and gnorm < stop``, exactly as the reference
+(Main/admmPathPlanning3D.cpp:504).  Each iteration reads its diagnostics to
+the host once, which also ends the iteration's device work before
+``wall_ms`` is taken.
+"""
+
+from __future__ import annotations
+
+import time
+import warnings
+from typing import Callable
+
+import numpy as np
+import torch
+
+from trajopt_tpu.config import TrajOptConfig
+
+from ..ops import broadphase as bp
+from ..ops import cuda_gjk
+from ..ops import energies as en
+from ..types import Scene, SolverState, SplineConsts, StepDiag
+from . import admm
+
+
+def initial_clearance(consts: SplineConsts, state: SolverState, scene: Scene) -> float:
+    """Min distance from the initial control hulls to the obstacle cloud (the
+    8 nearest points per segment box, 32 GJK iterations).  The solver needs
+    a collision-free start with clearance > offset; this warns early instead
+    of stalling silently at step 0."""
+    hull = en.seg_cps(consts, state.spline)                 # [P,R,n,3]
+    cand = bp.topk_candidates(hull, scene, radius=float("inf"), k=8)
+    pts = scene.points[cand.idx]                            # [P,R,8,3]
+    p, r, k, _ = pts.shape
+    n = hull.shape[-2]
+    diff = (hull[:, :, None] - pts[..., None, :]).reshape(p * r * k, n, 3)
+    d = cuda_gjk.gjk_exact(diff.contiguous(), 32).dist
+    return float(d.min())
+
+
+def warn_on_coarse_overflow(
+    consts: SplineConsts, cfg: TrajOptConfig, spline: torch.Tensor, scene: Scene
+) -> None:
+    """One-time audit of the two-level broad phase: warn if a piece box holds
+    more in-radius points than ``broadphase_coarse_k``."""
+    if not cfg.broadphase_coarse_k:
+        return
+    hull = en.seg_cps(consts, spline)
+    ov = bp.coarse_overflow(hull, scene, cfg.offset + cfg.margin, cfg.broadphase_coarse_k)
+    if bool(ov.any()):
+        warnings.warn(
+            f"broad-phase coarse filter overflow: some piece boxes have more "
+            f"than broadphase_coarse_k={cfg.broadphase_coarse_k} in-radius "
+            "obstacle points; separating-plane quality may degrade — raise "
+            "broadphase_coarse_k (or set it to 0 for the direct path)",
+            stacklevel=3,
+        )
+
+
+def _warn_plane_overflow(cfg: TrajOptConfig, history: list) -> None:
+    """One warning per solve when the plane-GJK compaction dropped live
+    in-radius candidate pairs."""
+    if history[-1]["plane_overflow"] and sum(1 for h in history if h["plane_overflow"]) == 1:
+        warnings.warn(
+            "separating-plane GJK budget overflow: more in-radius candidate "
+            f"pairs than plane_gjk_budget={cfg.plane_gjk_budget} / "
+            f"self_plane_gjk_budget={cfg.self_plane_gjk_budget} slots; "
+            "overflow pairs get no barrier plane this iteration (CCD still "
+            "prevents collisions) — raise the budget for dense scenes",
+            stacklevel=3,
+        )
+
+
+def solve(
+    consts: SplineConsts,
+    cfg: TrajOptConfig,
+    state: SolverState,
+    scene: Scene,
+    max_iters: int | None = None,
+    callback: Callable[[int, StepDiag], None] | None = None,
+    validate_init: bool = True,
+    checkpointer=None,
+) -> tuple[SolverState, list[dict]]:
+    """Host-driven ADMM loop with per-iteration metrics (the same history
+    keys as the JAX driver)."""
+    if checkpointer is not None:
+        raise NotImplementedError("checkpointing is not ported to torch yet")
+    if cfg.optimal_plane:
+        raise NotImplementedError("optimal_plane=True is not ported to torch yet")
+    max_iters = max_iters if max_iters is not None else cfg.max_iters
+    if validate_init:
+        clr = initial_clearance(consts, state, scene)
+        if clr <= cfg.offset:
+            warnings.warn(
+                f"initial trajectory clearance {clr:.4f} <= offset "
+                f"{cfg.offset}: the CCD safety clamp will block all motion "
+                "(the solver, like the reference, requires a collision-free "
+                "initialization — use the RRT planner or better waypoints)",
+                stacklevel=2,
+            )
+        warn_on_coarse_overflow(consts, cfg, state.spline, scene)
+    history: list[dict] = []
+    it = 0
+    gnorm = np.inf
+    while it < max_iters:
+        if it > 1 and gnorm < cfg.stop:
+            break
+        t0 = time.perf_counter()
+        state, diag = admm.admm_step(consts, cfg, state, scene)
+        vals = torch.stack([
+            diag.gnorm, diag.consensus_residual, diag.step, diag.ccd_step,
+            diag.n_planes.to(diag.gnorm.dtype), diag.energy,
+            torch.as_tensor(diag.plane_overflow, device=diag.gnorm.device).to(diag.gnorm.dtype),
+            state.piece_time,
+        ]).tolist()
+        gnorm = vals[0]
+        history.append({
+            "iter": it,
+            "gnorm": gnorm,
+            "consensus_residual": vals[1],
+            "step": vals[2],
+            "ccd_step": vals[3],
+            "n_planes": int(vals[4]),
+            "energy": vals[5],
+            "plane_overflow": bool(vals[6]),
+            "piece_time": vals[7],
+            "wall_ms": (time.perf_counter() - t0) * 1e3,
+        })
+        _warn_plane_overflow(cfg, history)
+        if callback:
+            callback(it, diag)
+        it += 1
+    return state, history
