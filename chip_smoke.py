@@ -5,22 +5,31 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-Phases, each reported on its own lines:
+Phases, each reported on its own lines with the seconds it took:
 1. card and build: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, and the time to build the CUDA kernels from ``csrc/``;
-2. every kernel (K1-K4) against its plain torch version on the card, in
-   float32, at the shapes the single-UAV solve gives it plus edge cases;
+2. every kernel (K1-K5) against its plain torch version on the card, in
+   float32, at the shapes the single-UAV and the 64-robot solves give it
+   plus edge cases;
 3. the single-UAV bridge solve (the reference's benchmark scene) at P=4 and
    P=16 pieces on the card, checked against the C++ reference's trajectory
    quality (tools/ref_baseline/results.json) and, at P=4, against the
    port's own float64 CPU run; the kernels' launch counters must all move
    during each solve;
-4. per-kernel times beside their plain versions at the P=4 shapes.
+4. the 64-robot cross (the repository's north-star configuration) in
+   coupled and decoupled mode on the card: convergence, trajectory quality
+   against the C++ rows, obstacle clearance, pairwise clearance by K2
+   cross-checked by K5, launches of K1-K4 in each solve, host syncs per
+   steady iteration and the device's idle share; then 4 robots coupled on
+   the card against the port's float64 CPU run and the C++ row;
+5. per-kernel times beside their plain versions, the least time the card
+   could take for the same work, and the one PyTorch call that computes the
+   same function where there is one.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failed check raises,
 so the exit code is non-zero and the last line is not printed.  Imports no
-JAX.
+JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -41,9 +50,19 @@ MAX_ITERS = 2000
 PARITY_TOL = 0.02          # tools/parity_report.py: ccd_time / ccd_len within 2%
 ITER_SLACK = 2             # card f32 vs CPU f64 iteration counts (rung lattice)
 
+FLEET = 64                 # robots of the north-star cross (bench.py, __graft_entry__.py)
+FLEET_PIECES = 4
+FLEET_POINTS = 4000
+FLEET_MAX_ITERS = 600      # tools/parity_report.py's cap
+SMALL_FLEET = 4            # card vs CPU float64 comparison
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
+
 KERNELS = {
     "smallest_k": ("trajopt_tpu_torch/csrc/topk.cu", "trajopt_tpu/ops/pallas_topk.py:53"),
     "gjk_exact": ("trajopt_tpu_torch/csrc/gjk.cu", "trajopt_tpu/ops/pallas_gjk.py:295"),
+    "gjk_fw": ("trajopt_tpu_torch/csrc/gjk_fw.cu", "trajopt_tpu/ops/pallas_gjk.py:35"),
     "mod_chol": ("trajopt_tpu_torch/csrc/chol.cu", "trajopt_tpu/ops/pallas_chol.py:43"),
     "chol_solve": ("trajopt_tpu_torch/csrc/chol.cu", "trajopt_tpu/ops/pallas_chol.py:90"),
 }
@@ -78,31 +97,47 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
-def topk_cases(device, rng):
-    """(name, x, k) at the P=4 slice shapes plus ties and short rows."""
+def _f32(device):
     import numpy as np
     import torch
 
-    def t(a):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=device)
+    return lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=device)
 
-    def dists(rows, n, inf_frac):
-        a = rng.random((rows, n)) ** 2 * 10.0
-        a[rng.random((rows, n)) < inf_frac] = np.inf
+
+def topk_cases(device, rng):
+    """(name, x, k) at the single-UAV and 64-robot slice shapes plus ties and
+    short rows."""
+    import numpy as np
+
+    t = _f32(device)
+
+    def dists(shape, inf_frac):
+        a = rng.random(shape) ** 2 * 10.0
+        a[rng.random(shape) < inf_frac] = np.inf
         return a
 
     ties = np.round(rng.random((8, 1000)) * 20.0)
     short = np.full((4, 100), np.inf)
     short[:, rng.choice(100, 5, replace=False)] = rng.random(5)
+    self_d2 = dists((FLEET, FLEET_PIECES, 8, FLEET), 0.0)
+    self_d2[np.arange(FLEET), :, :, np.arange(FLEET)] = np.inf
     return [
-        ("coarse [4,20000] k=64", t(dists(4, N_POINTS, 0.1)), 64),
-        ("fine [32,64] k=16", t(dists(32, 64, 0.2)), 16),
-        ("clearance [32,20000] k=8", t(dists(32, N_POINTS, 0.0)), 8),
-        ("ccd segments [1,32] k=32", t(dists(1, 32, 0.5)), 32),
-        ("ccd level1 [32,20000] k=17", t(dists(32, N_POINTS, 0.3)), 17),
-        ("ccd level2 [32,16] k=9", t(dists(32, 16, 0.3)), 9),
+        ("coarse [4,20000] k=64", t(dists((4, N_POINTS), 0.1)), 64),
+        ("fine [32,64] k=16", t(dists((32, 64), 0.2)), 16),
+        ("clearance [32,20000] k=8", t(dists((32, N_POINTS), 0.0)), 8),
+        ("ccd segments [1,32] k=32", t(dists((1, 32), 0.5)), 32),
+        ("ccd level1 [32,20000] k=17", t(dists((32, N_POINTS), 0.3)), 17),
+        ("ccd level2 [32,16] k=9", t(dists((32, 16), 0.3)), 9),
         ("ties [8,1000] k=50", t(ties), 50),
         ("few finite [4,100] k=20", t(short), 20),
+        ("fleet pieces [1,256] k=32", t(dists((1, 256), 0.5)), 32),
+        ("fleet coarse [32,4000] k=64", t(dists((32, FLEET_POINTS), 0.0)), 64),
+        ("fleet segments [32,8,64] k=16", t(dists((32, 8, 64), 0.1)), 16),
+        ("self planes [64,4,8,64] k=4", t(self_d2), 4),
+        ("pair ccd [64,4,8,64] k=9", t(self_d2 + np.round(dists(self_d2.shape, 0.0))), 9),
+        ("pair ccd level2 [64,4,8,8] k=5", t(dists((FLEET, FLEET_PIECES, 8, 8), 0.3)), 5),
+        ("obstacle ccd segments [1,2048] k=64", t(dists((1, 2048), 0.5)), 64),
+        ("obstacle ccd level1 [64,4000] k=17", t(dists((64, FLEET_POINTS), 0.3)), 17),
     ]
 
 
@@ -135,39 +170,39 @@ def brute_origin_dist(u):
     u = np.asarray(u, dtype=np.float64)
     n, m, _ = u.shape
     best = np.full(n, np.inf)
-    for k in (1, 2, 3):
-        for sub in itertools.combinations(range(m), k):
-            w = u[:, sub]                                        # [N,k,3]
-            g = np.einsum("nid,njd->nij", w, w)
-            a = np.zeros((n, k + 1, k + 1))
-            a[:, :k, :k] = g
+    subsets = {k: np.array(list(itertools.combinations(range(m), k))) for k in (1, 2, 3, 4)}
+    for i in range(n):
+        for k in (1, 2, 3):
+            w = u[i][subsets[k]]                                 # [C,k,3]
+            c = len(w)
+            a = np.zeros((c, k + 1, k + 1))
+            a[:, :k, :k] = np.einsum("cid,cjd->cij", w, w)
             a[:, :k, k] = 1.0
             a[:, k, :k] = 1.0
-            rhs = np.zeros((n, k + 1))
+            rhs = np.zeros((c, k + 1))
             rhs[:, k] = 1.0
-            sol = np.einsum("nij,nj->ni", np.linalg.pinv(a), rhs)
-            lam = sol[:, :k]
+            lam = np.einsum("cij,cj->ci", np.linalg.pinv(a), rhs)[:, :k]
             ok = (lam >= -1e-12).all(1) & (np.abs(lam.sum(1) - 1.0) < 1e-9)
-            d = np.linalg.norm(np.einsum("ni,nid->nd", lam, w), axis=1)
-            best = np.where(ok, np.minimum(best, d), best)
-    for sub in itertools.combinations(range(m), 4):
-        w = u[:, sub]
-        a = np.concatenate([w.transpose(0, 2, 1), np.ones((n, 1, 4))], axis=1)
-        rhs = np.tile(np.array([0.0, 0.0, 0.0, 1.0]), (n, 1))
-        sol = np.einsum("nij,nj->ni", np.linalg.pinv(a), rhs)
-        res = np.abs(np.einsum("nij,nj->ni", a, sol) - rhs).max(1)
-        inside = (sol >= -1e-12).all(1) & (res < 1e-9)
-        best = np.where(inside, 0.0, best)
+            d = np.linalg.norm(np.einsum("ci,cid->cd", lam, w), axis=1)
+            if ok.any():
+                best[i] = min(best[i], d[ok].min())
+        if m >= 4:
+            w = u[i][subsets[4]]
+            a = np.concatenate([w.transpose(0, 2, 1), np.ones((len(w), 1, 4))], axis=1)
+            rhs = np.array([0.0, 0.0, 0.0, 1.0])
+            sol = np.einsum("cij,j->ci", np.linalg.pinv(a), rhs)
+            res = np.abs(np.einsum("cij,cj->ci", a, sol) - rhs).max(1)
+            if ((sol >= -1e-12).all(1) & (res < 1e-9)).any():
+                best[i] = 0.0
     return best
 
 
-def gjk_cases(device, rng):
+def gjk_cases(device, rng, pair_diffs):
+    """(name, u, iters, brute rows): the brute-force oracle runs on the
+    first ``brute rows`` problems of each case (it is cubic-to-quartic in m)."""
     import numpy as np
-    import torch
 
-    def t(a):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=device)
-
+    t = _f32(device)
     hulls = rng.normal(size=(512, 6, 3)) * 0.3
     pts = rng.normal(size=(512, 1, 3)) * 1.5
     a, b = rng.normal(size=(128, 1, 3)), rng.normal(size=(128, 1, 3))
@@ -178,53 +213,188 @@ def gjk_cases(device, rng):
     base = rng.normal(size=(128, 3, 3))
     coincident = np.repeat(base, 2, axis=1) + rng.normal(size=(128, 1, 3))
     far = rng.normal(size=(256, 6, 3)) * 0.2 + np.array([3.0, -1.0, 0.5])
+    ha = rng.normal(size=(1024, 6, 3)) * 0.3
+    hb = rng.normal(size=(1024, 6, 3)) * 0.3 + rng.normal(size=(1024, 1, 3)) * 0.8
+    self_pairs = (ha[:, :, None] - hb[:, None]).reshape(1024, 36, 3)
     return [
-        ("plane fit [512,6,3] iters=16", t(hulls - pts), 16),
-        ("ccd level3 [256,6,3] iters=16", t(far), 16),
-        ("clearance [256,6,3] iters=32", t(far[:, ::-1]), 32),
-        ("collinear [128,6,3]", t(collinear), 16),
-        ("coplanar [128,6,3]", t(coplanar), 16),
-        ("coincident [128,6,3]", t(coincident), 16),
+        ("plane fit [512,6,3] iters=16", t(hulls - pts), 16, 512),
+        ("ccd level3 [256,6,3] iters=16", t(far), 16, 256),
+        ("clearance [256,6,3] iters=32", t(far[:, ::-1]), 32, 256),
+        ("collinear [128,6,3]", t(collinear), 16, 128),
+        ("coplanar [128,6,3]", t(coplanar), 16, 128),
+        ("coincident [128,6,3]", t(coincident), 16, 128),
+        ("self planes [1024,36,3] iters=16", t(self_pairs), 16, 8),
+        (f"fleet pairs {list(pair_diffs.shape)} iters=48 (64-robot start)", pair_diffs, 48, 8),
     ]
 
 
-def check_gjk(device, rng, log):
+def check_gjk(device, rng, pair_diffs, log):
     import torch
     from trajopt_tpu_torch.ops import cuda_gjk
 
     err = 0.0
-    for name, u, iters in gjk_cases(device, rng):
+    for name, u, iters, n_brute in gjk_cases(device, rng, pair_diffs):
         hd = cuda_gjk.gjk_exact(u, iters)
         _sync(device)
         ref = cuda_gjk.gjk_exact_plain(u, iters)
         scale = u.abs().amax(dim=(1, 2))
-        true = torch.as_tensor(brute_origin_dist(u.double().cpu().numpy()), device=device)
         # where the origin touches or lies in the hull, lb is a path-dependent
         # non-positive number (no separation certificate): only its soundness
         # is compared there
-        sep = true > 1e-3 * scale.double()
+        sep = ref.dist > 1e-3 * scale
         e_dist = (hd.dist - ref.dist).abs() / scale
         e_lb = torch.where(sep, (hd.lb - ref.lb).abs() / scale, 0.0)
         check(bool((e_dist <= 1e-5).all()),
               f"K2 {name}: dist differs from plain by {float(e_dist.max()):.3g} x scale")
         check(bool((e_lb <= 1e-5).all()),
               f"K2 {name}: lb differs from plain by {float(e_lb.max()):.3g} x scale")
-        over = ((hd.lb.double() - true) / scale.double()).max()
+        true = torch.as_tensor(brute_origin_dist(u[:n_brute].double().cpu().numpy()), device=device)
+        over = ((hd.lb[:n_brute].double() - true) / scale[:n_brute].double()).max()
         check(float(over) <= 1e-6, f"K2 {name}: lb exceeds the true distance by {float(over):.3g} x scale")
         err = max(err, float((hd.dist - ref.dist).abs().max()),
                   float(torch.where(sep, (hd.lb - ref.lb).abs(), 0.0).max()))
         log(f"  K2 gjk_exact {name}: |dist-plain|/scale {float(e_dist.max()):.2e}, "
             f"|lb-plain|/scale {float(e_lb.max()):.2e} ({int(sep.sum())} separated of {len(sep)}), "
-            f"max (lb-true)/scale {float(over):.2e}")
+            f"max (lb-true)/scale {float(over):.2e} on {n_brute}")
+    return err
+
+
+def fw_cases(device, rng, pair_diffs):
+    """(name, entry point call(iters), difference set u, iters) for K5 at
+    m = 6, 12 and 36, and at the pairwise-clearance cross-check's shape."""
+    import numpy as np
+    from trajopt_tpu_torch.ops import cuda_gjk
+
+    t = _f32(device)
+    shift = np.array([0.5, 0.2, -0.1])
+    rand = {m: t(rng.normal(size=(n, m, 3)) + shift) for n, m in ((256, 6), (130, 12), (64, 36))}
+    a = t(rng.normal(size=(128, 6, 3)))
+    b = t(rng.normal(size=(128, 6, 3)) + np.array([4.0, 0.0, 0.0]))
+    verts = t(rng.normal(size=(128, 12, 3)))
+    inside = verts.mean(dim=1)
+    coincident = t(np.repeat(rng.normal(size=(128, 6, 3)), 2, axis=1) + rng.normal(size=(128, 1, 3)))
+    coplanar = rng.normal(size=(128, 36, 3))
+    coplanar[..., 2] = 0.4 * rng.choice([-1.0, 1.0], size=(128, 1))
+    coplanar = t(coplanar)
+    cases = [(f"random {list(u.shape)}", u, 24 if m == 6 else 32) for m, u in rand.items()]
+    cases += [
+        ("separated pairs [128,6]x[128,6]", (a, b), 32),
+        ("points inside [128,12,3]", (verts, inside), 32),
+        ("coincident [128,12,3]", coincident, 32),
+        ("coplanar [128,36,3]", coplanar, 32),
+        (f"fleet pairs {list(pair_diffs.shape)} (64-robot start)", pair_diffs, 32),
+    ]
+    out = []
+    for name, x, iters in cases:
+        if isinstance(x, tuple) and x[1].ndim == 3:
+            call = lambda it, x=x: cuda_gjk.gjk_pairs(x[0], x[1], it)
+            u = (x[0][:, :, None] - x[1][:, None]).reshape(x[0].shape[0], -1, 3).contiguous()
+        elif isinstance(x, tuple):
+            call = lambda it, x=x: cuda_gjk.gjk_points(x[0], x[1], it)
+            u = (x[0] - x[1][:, None]).contiguous()
+        else:
+            call = lambda it, x=x: cuda_gjk.gjk_diffset(x, it)
+            u = x
+        out.append((name, call, u, iters))
+    return out
+
+
+def fw_looseness(h, scale, true, sep):
+    """K5 result ``h``: (dist - lb) / scale on the problems ``sep`` the plain
+    version certifies separated, and (dist - true) / scale on the first
+    len(true) problems (float64)."""
+    n = len(true)
+    return {"dist-lb": ((h.dist.double() - h.lb.double()) / scale)[sep],
+            "dist-true": (h.dist[:n].double() - true) / scale[:n]}
+
+
+def fw_tightness_faults(hd, ref, ref_half, scale, true, sep, tol=1e-5):
+    """Where K5's brackets after ``iters`` rounds are looser than the plain
+    version's: at the median, each looseness of ``fw_looseness`` may exceed
+    twice plain's after the same rounds by ``tol``; at the maximum, plain's
+    after half the rounds by ``tol``.  (The maximum over a case is set by
+    the few problems whose paths part most, which can land 10x apart between
+    two correct implementations; half the rounds is looser than that.)"""
+    faults = []
+    got, want, half = (fw_looseness(h, scale, true, sep) for h in (hd, ref, ref_half))
+    for key, k in got.items():
+        if k.numel() == 0:
+            continue
+        med, med_ref = float(k.median()), float(want[key].median())
+        top, top_half = float(k.max()), float(half[key].max())
+        if med > 2.0 * med_ref + tol:
+            faults.append(f"median {key} {med:.3g} > 2 x plain {med_ref:.3g} + {tol:g}")
+        if top > top_half + tol:
+            faults.append(f"max {key} {top:.3g} > plain at half the rounds {top_half:.3g} + {tol:g}")
+    return faults
+
+
+def check_fw(device, rng, pair_diffs, log):
+    """K5 against its plain version.  Frank-Wolfe with the away step meets
+    exact ties by construction: after an exact line search on an edge, both
+    ends score u.v = |v|^2, and rounding (sums taken in another order) picks
+    the away vertex.  So kernel and plain agree to rounding for one round
+    only.  After the full rounds each case must meet: the brackets [lb, dist]
+    of kernel and plain intersect and contain the float64 brute-force
+    distance; the kernel's brackets are as tight as plain's
+    (`fw_tightness_faults`), and the kernel's own one-round output fails that
+    test (the control); and from ``iters - 1`` to ``iters`` rounds the
+    kernel's lb does not fall nor its dist rise beyond 1e-6 x scale."""
+    from trajopt_tpu_torch.ops import cuda_gjk
+
+    import torch
+
+    err = 0.0
+    for name, call, u, iters in fw_cases(device, rng, pair_diffs):
+        scale = u.abs().amax(dim=(1, 2))
+        one = call(1)
+        _sync(device)
+        ref1 = cuda_gjk.gjk_fw_plain(u, 1)
+        e1 = torch.maximum((one.dist - ref1.dist).abs(), (one.lb - ref1.lb).abs()) / scale
+        check(bool((e1 <= 1e-5).all()),
+              f"K5 {name}: one round differs from plain by {float(e1.max()):.3g} x scale")
+        err = max(err, float(torch.maximum((one.dist - ref1.dist).abs(),
+                                           (one.lb - ref1.lb).abs()).max()))
+        hd, prev = call(iters), call(iters - 1)
+        _sync(device)
+        ref, ref_half = cuda_gjk.gjk_fw_plain(u, iters), cuda_gjk.gjk_fw_plain(u, iters // 2)
+        gap = torch.maximum(hd.lb - ref.dist, ref.lb - hd.dist) / scale
+        check(bool((gap <= 1e-5).all()),
+              f"K5 {name}: kernel and plain brackets are {float(gap.max()):.3g} x scale apart")
+        n_brute = 32 if u.shape[1] <= 12 else 8
+        true = torch.as_tensor(brute_origin_dist(u[:n_brute].double().cpu().numpy()), device=device)
+        sc = scale[:n_brute].double()
+        over = float(((hd.lb[:n_brute].double() - true) / sc).max())
+        under = float(((true - hd.dist[:n_brute].double()) / sc).max())
+        check(over <= 1e-5, f"K5 {name}: lb exceeds the true distance by {over:.3g} x scale")
+        check(under <= 1e-5, f"K5 {name}: dist is below the true distance by {under:.3g} x scale")
+        sep = ref.lb > 1e-3 * scale
+        dscale = scale.double()
+        faults = fw_tightness_faults(hd, ref, ref_half, dscale, true, sep)
+        check(not faults, f"K5 {name}: brackets looser than plain's: {'; '.join(faults)}")
+        check(fw_tightness_faults(one, ref, ref_half, dscale, true, sep),
+              f"K5 {name}: the tightness test does not tell one round from {iters}")
+        lb_drop = float(((prev.lb - hd.lb) / scale).max())
+        dist_rise = float(((hd.dist - prev.dist) / scale).max())
+        check(lb_drop <= 1e-6, f"K5 {name}: lb falls by {lb_drop:.3g} x scale in round {iters}")
+        check(dist_rise <= 1e-6, f"K5 {name}: dist rises by {dist_rise:.3g} x scale in round {iters}")
+        loose = {key: " ".join(f"{float(v.median()):.1e}/{float(v.max()):.1e}" if v.numel() else "-"
+                               for v in (kv, rv))
+                 for (key, kv), rv in zip(fw_looseness(hd, dscale, true, sep).items(),
+                                          fw_looseness(ref, dscale, true, sep).values())}
+        log(f"  K5 gjk_fw {name}: 1 round |kernel-plain|/scale {float(e1.max()):.2e}; "
+            f"{iters} rounds: brackets apart {float(gap.max()):.2e} x scale, "
+            f"median/max /scale kernel plain: {loose} "
+            f"({int(sep.sum())} separated, true on {n_brute}), "
+            f"max (lb-true)/scale {over:.2e}, max (true-dist)/scale {under:.2e}, "
+            f"last round lb drop {lb_drop:.1e}, dist rise {dist_rise:.1e}")
     return err
 
 
 def chol_cases(device, rng):
     import numpy as np
-    import torch
 
-    def t(a):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=device)
+    t = _f32(device)
 
     def spd(b, m, cond):
         q, _ = np.linalg.qr(rng.normal(size=(b, m, m)))
@@ -233,11 +403,15 @@ def chol_cases(device, rng):
 
     sym = rng.normal(size=(4, 19, 19))
     indefinite = sym + sym.transpose(0, 2, 1)
+    sym = rng.normal(size=(256, 19, 19))
     return [
         ("PD [4,19,19] cond 1e2", t(spd(4, 19, 1e2)), True),
         ("indefinite [4,19,19]", t(indefinite), False),
         ("KKT-like [1,33,33] cond 1e2", t(spd(1, 33, 1e2)), True),
         ("KKT-like [1,33,33] cond 1e6", t(spd(1, 33, 1e6)), True),
+        ("fleet pieces PD [256,19,19] cond 1e2", t(spd(256, 19, 1e2)), True),
+        ("fleet pieces indefinite [256,19,19]", t(sym + sym.transpose(0, 2, 1)), False),
+        ("fleet KKT [64,33,33] cond 1e6", t(spd(FLEET, 33, 1e6)), True),
     ]
 
 
@@ -284,7 +458,6 @@ def _residual(l, x, b):
 
 
 def check_solve(device, rng, factors, log):
-    import numpy as np
     import torch
     from trajopt_tpu_torch.ops import cuda_chol
 
@@ -312,27 +485,33 @@ def check_solve(device, rng, factors, log):
     return err
 
 
-def check_kernels(device, log, seed=0):
-    """Every kernel against its plain version; returns max abs errors."""
+def check_kernels(device, log, seed=0, pair_diffs=None):
+    """Every kernel against its plain version; returns max abs errors.
+    ``pair_diffs``: the 64-robot start's pair differences [N,36,3] (built
+    here when not given)."""
     import numpy as np
 
+    if pair_diffs is None:
+        pair_diffs = fleet_pair_diffs(device)
     rng = np.random.default_rng(seed)
-    errs = {"smallest_k": check_topk(device, rng, log), "gjk_exact": check_gjk(device, rng, log)}
+    errs = {"smallest_k": check_topk(device, rng, log),
+            "gjk_exact": check_gjk(device, rng, pair_diffs, log),
+            "gjk_fw": check_fw(device, rng, pair_diffs, log)}
     errs["mod_chol"], factors = check_chol(device, rng, log)
     errs["chol_solve"] = check_solve(device, rng, factors, log)
     return errs
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: the solve
+# Phase 3: the single-UAV solve
 # ---------------------------------------------------------------------------
 
 
 def build_problem(pieces, device, dtype):
-    from trajopt_tpu.config import TrajOptConfig
-    from trajopt_tpu.ops import splines as sp
-    from trajopt_tpu.scenes import generators as gen
     from trajopt_tpu_torch import types as tt
+    from trajopt_tpu_torch.config import TrajOptConfig
+    from trajopt_tpu_torch.ops import splines as sp
+    from trajopt_tpu_torch.scenes import generators as gen
 
     cfg = TrajOptConfig(ks=1e-8, max_planes=16, max_ccd_candidates=16)
     cloud, wp = gen.bridge_scene(n_points=N_POINTS, seed=0, n_pieces=pieces)
@@ -344,7 +523,7 @@ def build_problem(pieces, device, dtype):
 
 def solve_case(pieces, device, dtype):
     """One bridge solve; returns the result row (iterations, quality, timing)."""
-    from trajopt_tpu import metrics as mt
+    from trajopt_tpu_torch import metrics as mt
     from trajopt_tpu_torch.solver import driver
 
     cfg, ops, cloud, consts, scene, state0 = build_problem(pieces, device, dtype)
@@ -368,39 +547,36 @@ def solve_case(pieces, device, dtype):
     }
 
 
-def reference_row(pieces):
+def reference_row(mode, **key):
+    """The C++ reference's row: mode "single" with pieces=P, or "coupled" /
+    "decoupled" with uavs=U."""
     with open(os.path.join(HERE, "tools", "ref_baseline", "results.json")) as f:
         for case in json.load(f)["cases"]:
-            if case["mode"] == "single" and case["pieces"] == pieces:
+            if case["mode"] == mode and all(case.get(k) == v for k, v in key.items()):
                 return case
-    raise KeyError(f"no C++ reference row for single p{pieces}")
+    raise KeyError(f"no C++ reference row for {mode} {key}")
 
 
-def check_parity(row, log):
-    ref = reference_row(row["pieces"])
+def check_parity(label, row, ref, log):
     dtime = abs(row["ccd_time"] - ref["ccd_time"]) / ref["ccd_time"]
     dlen = abs(row["ccd_len"] - ref["ccd_len"]) / ref["ccd_len"]
-    log(f"  vs C++ p{row['pieces']}: iters {ref['iters']} / {row['iters']}, "
+    log(f"  vs C++ {label}: iters {ref['iters']} / {row['iters']}, "
         f"ccd_time {ref['ccd_time']:.4f} / {row['ccd_time']:.4f} ({dtime * 100:.2f}%), "
         f"ccd_len {ref['ccd_len']:.4f} / {row['ccd_len']:.4f} ({dlen * 100:.2f}%), "
         f"min clearance {row['min_clearance']:.4f} (offset {row['offset']})")
-    check(row["converged"], f"p{row['pieces']}: did not converge")
-    check(dtime <= PARITY_TOL, f"p{row['pieces']}: ccd_time off by {dtime * 100:.2f}%")
-    check(dlen <= PARITY_TOL, f"p{row['pieces']}: ccd_len off by {dlen * 100:.2f}%")
-    check(row["min_clearance"] >= row["offset"], f"p{row['pieces']}: clearance below offset")
+    check(row["converged"], f"{label}: did not converge")
+    check(dtime <= PARITY_TOL, f"{label}: ccd_time off by {dtime * 100:.2f}%")
+    check(dlen <= PARITY_TOL, f"{label}: ccd_len off by {dlen * 100:.2f}%")
+    check(row["min_clearance"] >= row["offset"], f"{label}: clearance below offset")
 
 
-def count_syncs(pieces, device):
-    """Host syncs in one steady ADMM iteration, by source line."""
+def count_syncs(step):
+    """Host syncs in one call of ``step()``, by source line of the port."""
     import collections
     import traceback
 
     import torch
-    from trajopt_tpu_torch.solver import admm
 
-    cfg, ops, cloud, consts, scene, state = build_problem(pieces, device, torch.float32)
-    state, _ = admm.admm_step(consts, cfg, state, scene)
-    torch.cuda.synchronize()
     where = collections.Counter()
     pkg = os.path.join(HERE, "trajopt_tpu_torch")
 
@@ -411,19 +587,208 @@ def count_syncs(pieces, device):
                 f = frames[-1]
                 where[f"{os.path.relpath(f.filename, HERE)}:{f.lineno}"] += 1
 
+    torch.cuda.synchronize()
     with warnings.catch_warnings():
         warnings.simplefilter("always")
         warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            admm.admm_step(consts, cfg, state, scene)
+            step()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     return where
 
 
+def log_syncs(label, where, log):
+    log(f"  host syncs in one {label} iteration: {sum(where.values())}")
+    for line, n in sorted(where.items()):
+        log(f"    {n:3d}  {line}")
+
+
+def single_steady_syncs(pieces, device):
+    import torch
+    from trajopt_tpu_torch.solver import admm
+
+    cfg, ops, cloud, consts, scene, state = build_problem(pieces, device, torch.float32)
+    state, _ = admm.admm_step(consts, cfg, state, scene)
+    return count_syncs(lambda: admm.admm_step(consts, cfg, state, scene))
+
+
 # ---------------------------------------------------------------------------
-# Phase 4: timing
+# Phase 4: the multi-robot solve
+# ---------------------------------------------------------------------------
+
+
+def build_fleet(uavs, device, dtype):
+    """The north-star cross (__graft_entry__.py's problem as bench.py calls
+    it): cross scene of 4000 points, lane-assigned antipodal waypoints,
+    4 pieces, res 8."""
+    from trajopt_tpu_torch import types as tt
+    from trajopt_tpu_torch.config import TrajOptConfig
+    from trajopt_tpu_torch.ops import splines as sp
+    from trajopt_tpu_torch.scenes import generators as gen
+    from trajopt_tpu_torch.solver import multi
+
+    cfg = TrajOptConfig(res=8, ks=1e-3, max_planes=16, max_self_planes=4, max_ccd_candidates=16)
+    cloud = gen.cross_scene(n_points=FLEET_POINTS, seed=0)
+    wps = gen.assign_lanes(gen.cross_waypoints(uavs, FLEET_PIECES), cloud)
+    ops = sp.build_spline_ops(FLEET_PIECES, cfg.res)
+    kw = dict(device=device, dtype=dtype)
+    return (cfg, ops, cloud, tt.device_consts(ops, **kw), tt.make_scene(cloud, **kw),
+            multi.init_multi_state(ops, wps, cfg.init_piece_time, **kw))
+
+
+def fleet_pair_diffs(device):
+    """[pairs*P*R, 36, 3] Minkowski differences of the 64-robot start's
+    equal-segment hull pairs (float32, on ``device``)."""
+    import torch
+    from trajopt_tpu_torch.ops import geometry as geo
+    from trajopt_tpu_torch.solver import driver
+
+    _, _, _, consts, _, state = build_fleet(FLEET, device, torch.float32)
+    return geo.minkowski_diff(*driver.robot_pair_hulls(consts, state.spline)).contiguous()
+
+
+def solve_fleet(uavs, coupled, device, dtype):
+    """One cross solve until gnorm < stop; returns (row, consts, final state)."""
+    from trajopt_tpu_torch import metrics as mt
+    from trajopt_tpu_torch.solver import driver
+
+    cfg, ops, cloud, consts, scene, state0 = build_fleet(uavs, device, dtype)
+    t0 = time.perf_counter()
+    state, hist = driver.solve_multi(consts, cfg, state0, scene, coupled=coupled,
+                                     max_iters=FLEET_MAX_ITERS)
+    wall = time.perf_counter() - t0
+    splines = state.spline.detach().double().cpu().numpy()
+    times = state.piece_time.detach().double().cpu().numpy()
+    ccd_time = ccd_len = 0.0
+    clearance = float("inf")
+    for i in range(uavs):
+        st = mt.trajectory_stats(ops, splines[i], float(times[i]))
+        ccd_time += st["ccd_time"]
+        ccd_len += st["ccd_len"]
+        clearance = min(clearance, float(mt.min_curve_clearance(ops, splines[i], cloud,
+                                                                float(times[i]))))
+    row = {
+        "uavs": uavs, "mode": "coupled" if coupled else "decoupled",
+        "iters": len(hist), "gnorm": hist[-1]["gnorm"],
+        "converged": len(hist) < FLEET_MAX_ITERS and hist[-1]["gnorm"] < cfg.stop,
+        "ccd_time": ccd_time, "ccd_len": ccd_len, "min_clearance": clearance,
+        "offset": cfg.offset, "solve_s": wall,
+        "median_iter_ms": statistics.median(h["wall_ms"] for h in hist),
+    }
+    return row, cfg, consts, scene, state
+
+
+def pair_clearance_check(cfg, consts, state, log):
+    """Min pairwise hull clearance of the final fleet at equal segment index
+    by K2 (`driver.initial_pair_clearance`), cross-checked pair by pair by
+    K5 (Frank-Wolfe, 32 rounds, `gjk_pairs`) on the same hull pairs: K5's
+    certified lb may not exceed K2's distance (`driver.pair_hull_dist`), nor
+    its dist fall below it, by more than 1e-5 on the pairs within 1 m, the
+    ones the clearance guarantee is about.  Pairs farther apart span tens of
+    metres, where K2's own stop test (|v|^2 within 100 float32 epsilons)
+    leaves up to ~7e-6 x max|u| (PERF.md): there the bound is 1e-5 x max|u|."""
+    import torch
+    from trajopt_tpu_torch.ops import cuda_gjk
+    from trajopt_tpu_torch.ops import geometry as geo
+    from trajopt_tpu_torch.solver import driver
+
+    clr = driver.initial_pair_clearance(consts, state)
+    k2 = driver.pair_hull_dist(consts, state.spline)
+    a, b = driver.robot_pair_hulls(consts, state.spline)
+    fw = cuda_gjk.gjk_pairs(a.contiguous(), b.contiguous(), 32)
+    near = k2.dist < 1.0
+    scale = geo.minkowski_diff(a, b).abs().amax(dim=(1, 2))
+    tol = torch.where(near, 1e-5, 1e-5 * scale)
+    over, under = fw.lb - k2.dist, k2.dist - fw.dist
+    top = lambda x: float(x.max()) if x.numel() else float("-inf")
+    log(f"  pairwise clearance (K2, {a.shape[0]} hull pairs): {clr:.5f} (offset {cfg.offset}); "
+        f"K5: min dist {float(fw.dist.min()):.5f}; on the {int(near.sum())} pairs within 1 m "
+        f"max (lb - K2 dist) {top(over[near]):.2e}, max (K2 dist - dist) {top(under[near]):.2e}; "
+        f"elsewhere the same over max|u| {top((over / scale)[~near]):.2e}, "
+        f"{top((under / scale)[~near]):.2e}")
+    check(clr >= cfg.offset - 1e-6, f"pairwise clearance {clr:.6f} below offset {cfg.offset}")
+    check(bool((over <= tol).all()), f"K5 lb exceeds K2's distance by {float(over.max()):.3g}")
+    check(bool((under <= tol).all()), f"K5 dist falls below K2's distance by {float(under.max()):.3g}")
+    return clr
+
+
+def device_busy_share(step, reps=3):
+    """(device busy ms, wall ms) over ``reps`` calls of ``step()`` under
+    torch.profiler; busy is the sum of the CUDA kernels' self times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_us = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            t = getattr(evt, "self_device_time_total", None)
+            busy_us += evt.self_cuda_time_total if t is None else t
+    return busy_us / 1e3, wall_ms
+
+
+def fleet_phase(device, log):
+    """Phase 4; returns the launch counts of each path and the rows."""
+    import torch
+    from trajopt_tpu_torch.ops import _cuda
+    from trajopt_tpu_torch.solver import multi
+
+    launches, rows = {}, {}
+    for coupled in (True, False):
+        mode = "coupled" if coupled else "decoupled"
+        _cuda.reset_launches()
+        row, cfg, consts, scene, state = solve_fleet(FLEET, coupled, device, torch.float32)
+        torch.cuda.synchronize()
+        launches[f"u{FLEET} {mode}"] = dict(_cuda.LAUNCHES)
+        rows[mode] = row
+        log(f"  u{FLEET} {mode}: iters {row['iters']} (C++ {reference_row(mode, uavs=FLEET)['iters']}), "
+            f"gnorm {row['gnorm']:.4g}, median {row['median_iter_ms']:.2f} ms/iter, "
+            f"solve {row['solve_s']:.2f} s, launches {launches[f'u{FLEET} {mode}']}")
+        for name in ("smallest_k", "gjk_exact", "mod_chol", "chol_solve"):
+            check(launches[f"u{FLEET} {mode}"][name] > 0,
+                  f"u{FLEET} {mode}: kernel {name} was never launched by the solve")
+        check_parity(f"u{FLEET} {mode}", row, reference_row(mode, uavs=FLEET), log)
+        _cuda.reset_launches()
+        row["pair_clearance"] = pair_clearance_check(cfg, consts, state, log)
+        torch.cuda.synchronize()
+        launches[f"u{FLEET} {mode} pair clearance"] = dict(_cuda.LAUNCHES)
+        check(_cuda.LAUNCHES["gjk_fw"] > 0, "K5 was never launched by the clearance cross-check")
+
+        # steady-state cost of one iteration from the converged-regime start
+        # of this solve's last iterate
+        step = lambda: multi.multi_admm_step(consts, cfg, state, scene, coupled)
+        step()
+        log_syncs(f"steady u{FLEET} {mode}", count_syncs(step), log)
+        busy, wall = device_busy_share(step)
+        row["busy_ms"], row["profiled_wall_ms"] = busy / 3, wall / 3
+        log(f"  torch.profiler, 3 steady u{FLEET} {mode} iterations: device busy {busy / 3:.3f} ms "
+            f"per iteration of {wall / 3:.3f} ms wall, idle share "
+            f"{1.0 - busy / wall if wall > 0 else float('nan'):.3f}")
+
+    # the port's card float32 against its own CPU float64 run
+    small, _, _, _, _ = solve_fleet(SMALL_FLEET, True, device, torch.float32)
+    cpu, _, _, _, _ = solve_fleet(SMALL_FLEET, True, torch.device("cpu"), torch.float64)
+    ref = reference_row("coupled", uavs=SMALL_FLEET)
+    log(f"  u{SMALL_FLEET} coupled: card float32 iters {small['iters']}, CPU float64 iters "
+        f"{cpu['iters']}, C++ {ref['iters']}")
+    check(abs(small["iters"] - cpu["iters"]) <= ITER_SLACK,
+          f"u{SMALL_FLEET}: card and CPU float64 iteration counts differ by "
+          f"{abs(small['iters'] - cpu['iters'])}")
+    check_parity(f"u{SMALL_FLEET} coupled card", small, ref, log)
+    check_parity(f"u{SMALL_FLEET} coupled CPU float64", cpu, ref, log)
+    return launches, rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: timing
 # ---------------------------------------------------------------------------
 
 
@@ -442,41 +807,115 @@ def time_ms(fn, reps=50):
     return start.elapsed_time(end) / reps
 
 
-def kernel_timings(device):
-    """(kernel ms, plain ms) at the P=4 slice shapes, alternating kernel and
-    plain runs (kernel, plain, plain, kernel) and keeping each one's best."""
+def k2_rounds(u, iters):
+    """Support rounds each problem of K2 runs on ``u`` (it stops a problem
+    once converged): the plain version's loop with a per-problem counter."""
+    import torch
+    from trajopt_tpu_torch.ops import geometry as geo
+
+    n, m = u.shape[0], u.shape[1]
+    rows = torch.arange(n, device=u.device)
+    scale = torch.clamp(u.abs().amax(dim=(1, 2)), min=1e-30)
+    us = u / scale[:, None, None]
+    w = us[rows, torch.argmin((us * us).sum(-1), dim=1)][:, None, :].expand(n, 4, 3).clone()
+    active = torch.zeros((n, 4), dtype=torch.bool, device=u.device)
+    active[:, 0] = True
+    tol = 100 * torch.finfo(u.dtype).eps
+    done = torch.zeros(n, dtype=torch.bool, device=u.device)
+    rounds = torch.zeros(n, dtype=torch.int64, device=u.device)
+    for _ in range(iters):
+        rounds += ~done
+        v, n2, sub = geo._min_norm_simplex(w, active)
+        scores = (us @ v[:, :, None])[..., 0]
+        s = torch.argmin(scores, dim=-1)
+        us_s = us[rows, s]
+        stale = (active & (w == us_s[:, None, :]).all(-1)).any(-1)
+        done = done | (scores[rows, s] >= n2 - tol * torch.clamp(n2, min=1.0)) | sub.all(-1) | stale
+        free = torch.argmin(sub.to(torch.uint8), dim=-1)
+        w_new = w.clone()
+        w_new[rows, free] = us_s
+        active_new = sub.clone()
+        active_new[rows, free] = True
+        w = torch.where(done[:, None, None], w, w_new)
+        active = torch.where(done[:, None], active, active_new)
+        if bool(done.all()):
+            break
+    return rounds
+
+
+def bound_ms(nbytes, flops):
+    """(least time in ms, "bytes" or "operations"): the larger of the bytes
+    over the memory rate and the float32 operations over the float32 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_timings(device, pair_diffs):
+    """Per kernel at one 64-robot slice shape: kernel ms and plain ms
+    (alternating kernel, plain, plain, kernel and keeping each one's best),
+    the one PyTorch call computing the same function (library ms, None where
+    there is none) and the least time the card could take (bound ms).
+
+    Operation counts, from the sources: K1 one compare per input element;
+    K2 (760 + 8m) flops per support round (Gram matrix, 15 subset solves,
+    scoring) times the rounds each problem runs; K3 2m^3/3 + 2m^2 per
+    block; K4 2m^2 per right-hand side per block; K5 only what Frank-Wolfe
+    needs, 9m + 60 operations a round (5m for the scores u.v, m each for the
+    argmin and the argmax, 2m for the weight update, and O(1) for the two
+    line searches, whose trial points v + g(u_s - v) and v + g(u_s - u_a)
+    and their norms have closed forms, and for lb) plus 6m for the start
+    (norms and their argmin)."""
     import numpy as np
     import torch
     from trajopt_tpu_torch.ops import cuda_chol, cuda_gjk, cuda_topk
 
     rng = np.random.default_rng(1)
     f32 = dict(dtype=torch.float32, device=device)
-    x = torch.as_tensor(rng.random((32, N_POINTS)), **f32)
-    u = torch.as_tensor(rng.normal(size=(512, 6, 3)), **f32)
-    a = rng.normal(size=(4, 19, 19))
+    x = torch.as_tensor(rng.random((32, FLEET_POINTS)), **f32)
+    ha = rng.normal(size=(1024, 6, 3)) * 0.3
+    hb = rng.normal(size=(1024, 6, 3)) * 0.3 + rng.normal(size=(1024, 1, 3)) * 0.8
+    u = torch.as_tensor((ha[:, :, None] - hb[:, None]).reshape(1024, 36, 3), **f32)
+    a = rng.normal(size=(256, 19, 19))
     h = torch.as_tensor(a @ a.transpose(0, 2, 1) + 19 * np.eye(19), **f32)
-    k = rng.normal(size=(1, 33, 33))
+    k = rng.normal(size=(FLEET, 33, 33))
     kkt = torch.as_tensor(k @ k.transpose(0, 2, 1) + 33 * np.eye(33), **f32)
     l33 = cuda_chol.mod_chol(kkt)[0]
-    rhs = torch.as_tensor(rng.normal(size=(1, 33, 2)), **f32)
+    rhs = torch.as_tensor(rng.normal(size=(FLEET, 33, 2)), **f32)
+    fa = pair_diffs.shape
+
+    rounds = int(k2_rounds(u, 16).sum())
     cases = {
-        "smallest_k": ("[32,20000] k=17", lambda: cuda_topk.smallest_k(x, 17),
-                       lambda: cuda_topk.smallest_k_plain(x, 17)),
-        "gjk_exact": ("[512,6,3] iters=16", lambda: cuda_gjk.gjk_exact(u, 16),
-                      lambda: cuda_gjk.gjk_exact_plain(u, 16)),
-        "mod_chol": ("[4,19,19]", lambda: cuda_chol.mod_chol(h),
-                     lambda: cuda_chol.mod_chol_plain(h)),
-        "chol_solve": ("L [1,33,33], b [1,33,2]", lambda: cuda_chol.chol_solve(l33, rhs),
-                       lambda: cuda_chol.chol_solve_plain(l33, rhs)),
+        "smallest_k": ("[32,4000] k=64", lambda: cuda_topk.smallest_k(x, 64),
+                       lambda: cuda_topk.smallest_k_plain(x, 64),
+                       lambda: torch.topk(x, 64, largest=False, sorted=True),
+                       bound_ms(x.numel() * 4 + 32 * 64 * 12, x.numel())),
+        "gjk_exact": ("[1024,36,3] iters=16", lambda: cuda_gjk.gjk_exact(u, 16),
+                      lambda: cuda_gjk.gjk_exact_plain(u, 16), None,
+                      bound_ms(u.numel() * 4 + 1024 * 20, rounds * (760 + 8 * 36))),
+        "gjk_fw": (f"{list(fa)} iters=32", lambda: cuda_gjk.gjk_diffset(pair_diffs, 32),
+                   lambda: cuda_gjk.gjk_fw_plain(pair_diffs, 32), None,
+                   bound_ms(pair_diffs.numel() * 4 + fa[0] * 20,
+                            fa[0] * (32 * (9 * fa[1] + 60) + 6 * fa[1]))),
+        "mod_chol": ("[256,19,19]", lambda: cuda_chol.mod_chol(h),
+                     lambda: cuda_chol.mod_chol_plain(h),
+                     lambda: torch.linalg.cholesky_ex(h),
+                     bound_ms(2 * h.numel() * 4 + 256 * 19 * 4, 256 * (2 * 19 ** 3 / 3 + 2 * 19 ** 2))),
+        "chol_solve": ("L [64,33,33], b [64,33,2]", lambda: cuda_chol.chol_solve(l33, rhs),
+                       lambda: cuda_chol.chol_solve_plain(l33, rhs),
+                       lambda: torch.cholesky_solve(rhs, l33),
+                       bound_ms(l33.numel() * 4 + 2 * rhs.numel() * 4, FLEET * 2 * 2 * 33 ** 2)),
     }
     out = {}
-    for name, (shape, kern, plain) in cases.items():
-        reps_plain = 5 if name == "gjk_exact" else 50
+    for name, (shape, kern, plain, library, (bound, bound_by)) in cases.items():
+        reps_plain = 5 if name in ("gjk_exact", "gjk_fw") else 50
         k1 = time_ms(kern)
         p1 = time_ms(plain, reps_plain)
         p2 = time_ms(plain, reps_plain)
         k2 = time_ms(kern)
-        out[name] = (shape, min(k1, k2), min(p1, p2))
+        lib = None if library is None else min(time_ms(library), time_ms(library))
+        out[name] = dict(shape=shape, ms=min(k1, k2), plain_ms=min(p1, p2), library_ms=lib,
+                         bound_ms=bound, bound_by=bound_by)
     return out
 
 
@@ -496,64 +935,89 @@ def main() -> int:
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    phase_t = [t_start]
+
+    def phase_done(n):
+        now = time.perf_counter()
+        log(f"-- phase {n}: {now - phase_t[0]:.1f} s")
+        phase_t[0] = now
 
     # -- phase 1 ------------------------------------------------------------
     log("== phase 1: card and build")
-    log(nvidia_smi_line())
+    smi = nvidia_smi_line()
+    log(smi)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
-    t0 = time.perf_counter()
     _cuda.lib()
-    log(f"kernel build: {time.perf_counter() - t0:.2f} s (nvcc {_cuda.build_info['seconds']:.2f} s, "
-        f"cached={_cuda.build_info['cached']})")
+    log(f"kernel build: {_cuda.build_info['seconds']:.2f} s (cached={_cuda.build_info['cached']})")
     for line in _cuda.build_info["log"].splitlines():
         if "Used" in line or "spill" in line:
             log("  ptxas: " + line.strip())
+    phase_done(1)
 
     # -- phase 2 ------------------------------------------------------------
     log("== phase 2: kernels against their plain versions (float32, on the card)")
-    errs = check_kernels(device, log)
+    pair_diffs = fleet_pair_diffs(device)
+    errs = check_kernels(device, log, pair_diffs=pair_diffs)
+    phase_done(2)
 
     # -- phase 3 ------------------------------------------------------------
     log("== phase 3: single-UAV bridge solves (float32, on the card)")
     launches = {}
-    rows = {}
     for pieces in SLICE_PIECES:
         _cuda.reset_launches()
         row = solve_case(pieces, device, torch.float32)
         torch.cuda.synchronize()
-        launches[pieces] = dict(_cuda.LAUNCHES)
-        rows[pieces] = row
+        launches[f"single p{pieces}"] = dict(_cuda.LAUNCHES)
         log(f"  p{pieces}: iters {row['iters']}, gnorm {row['gnorm']:.4g}, "
             f"ccd_time {row['ccd_time']:.4f}, ccd_len {row['ccd_len']:.4f}, "
             f"min clearance {row['min_clearance']:.4f}, median {row['median_iter_ms']:.2f} ms/iter, "
-            f"solve {row['solve_s']:.2f} s, launches {launches[pieces]}")
-        for name, n in launches[pieces].items():
-            check(n > 0, f"p{pieces}: kernel {name} was never launched by the solve")
-        check_parity(row, log)
+            f"solve {row['solve_s']:.2f} s, launches {launches[f'single p{pieces}']}")
+        for name in ("smallest_k", "gjk_exact", "mod_chol", "chol_solve"):
+            check(launches[f"single p{pieces}"][name] > 0,
+                  f"p{pieces}: kernel {name} was never launched by the solve")
+        check_parity(f"p{pieces}", row, reference_row("single", pieces=pieces), log)
+        if pieces == SLICE_PIECES[0]:
+            card_iters = row["iters"]
     cpu = solve_case(SLICE_PIECES[0], torch.device("cpu"), torch.float64)
     log(f"  p{SLICE_PIECES[0]} CPU float64: iters {cpu['iters']}, gnorm {cpu['gnorm']:.4g}, "
         f"ccd_time {cpu['ccd_time']:.4f}, ccd_len {cpu['ccd_len']:.4f}")
-    gap = abs(cpu["iters"] - rows[SLICE_PIECES[0]]["iters"])
+    gap = abs(cpu["iters"] - card_iters)
     check(gap <= ITER_SLACK, f"card and CPU float64 iteration counts differ by {gap}")
-    syncs = count_syncs(SLICE_PIECES[0], device)
-    log(f"  host syncs in one p{SLICE_PIECES[0]} iteration: {sum(syncs.values())}")
-    for where, n in sorted(syncs.items()):
-        log(f"    {n:3d}  {where}")
+    log_syncs(f"steady p{SLICE_PIECES[0]}", single_steady_syncs(SLICE_PIECES[0], device), log)
+    phase_done(3)
 
     # -- phase 4 ------------------------------------------------------------
-    log("== phase 4: kernel vs plain times at the P=4 shapes (CUDA events)")
-    times = kernel_timings(device)
-    for name, (shape, ms, plain_ms) in times.items():
-        log(f"  {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    log(f"== phase 4: {FLEET}-robot cross, coupled and decoupled (float32, on the card)")
+    fleet_launches, _ = fleet_phase(device, log)
+    launches.update(fleet_launches)
+    phase_done(4)
 
+    # -- phase 5 ------------------------------------------------------------
+    log(f"== phase 5: kernel, plain, library and bound times at {FLEET}-robot shapes "
+        f"(CUDA events; {smi})")
+    times = kernel_timings(device, pair_diffs)
+    for name, tm in times.items():
+        lib = "none" if tm["library_ms"] is None else f"{tm['library_ms']:.4f} ms"
+        log(f"  {name} {tm['shape']}: kernel {tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, "
+            f"library {lib}, bound {tm['bound_ms']:.5f} ms ({tm['bound_by']})")
+    phase_done(5)
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+
+    path = {name: f"u{FLEET} coupled" for name in KERNELS}
+    path["gjk_fw"] = f"u{FLEET} coupled pair clearance"
     kernels = []
     for name, (source, replaces) in KERNELS.items():
+        tm = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[SLICE_PIECES[0]][name], "max_abs_err": errs[name],
-            "ms": times[name][1], "plain_ms": times[name][2],
+            "launches": launches[path[name]][name], "max_abs_err": errs[name],
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+            "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
+            "launches_by_path": {p: c[name] for p, c in launches.items()},
         })
+    print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,9 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from trajopt_tpu.config import TrajOptConfig
 from trajopt_tpu.ops import geometry as jgeo
 from trajopt_tpu.ops import smallchol as jsc
+from trajopt_tpu_torch.config import TrajOptConfig
 from trajopt_tpu_torch.ops import _cuda, cuda_chol, cuda_gjk, cuda_topk
 from trajopt_tpu_torch.ops import geometry as geo
 

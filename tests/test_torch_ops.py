@@ -3,6 +3,7 @@ energies, per-piece gradients/Hessians, the reduced KKT direction, the
 broad phase and the analytic max-step CCD.  Inputs come from numpy seeds
 and go to both packages (through `trajopt_tpu_torch.types.from_numpy`)."""
 
+import dataclasses
 import functools
 
 import jax
@@ -21,6 +22,7 @@ from trajopt_tpu.ops import gradients as jgr
 from trajopt_tpu.ops import splines as sp
 from trajopt_tpu.scenes import generators as gen
 from trajopt_tpu.solver import admm as jadmm
+from trajopt_tpu_torch import config as tconfig
 from trajopt_tpu_torch import types as tt
 from trajopt_tpu_torch.ops import broadphase as bp
 from trajopt_tpu_torch.ops import ccd
@@ -31,6 +33,7 @@ from trajopt_tpu_torch.solver import admm
 torch.set_num_threads(1)
 F64 = dict(device="cpu", dtype=torch.float64)
 CFG = TrajOptConfig(res=4, max_planes=16, max_ccd_candidates=16)
+TCFG = tconfig.TrajOptConfig(**dataclasses.asdict(CFG))   # the port's, same fields
 
 
 def _close(got, want, rtol=1e-10):
@@ -83,24 +86,24 @@ def test_energies_match_jax(piece_time):
     _close(en.plane_distances(en.seg_cps(c, s.spline), p),
            jen.plane_distances(jen.seg_cps(jc, js.spline), jp))
     for name in ("plane_barrier_energy",):
-        got, want = getattr(en, name)(c, CFG, s.spline, p), getattr(jen, name)(jc, CFG, js.spline, jp)
+        got, want = getattr(en, name)(c, TCFG, s.spline, p), getattr(jen, name)(jc, CFG, js.spline, jp)
         _close(got.value, want.value)
         _close(got.infeasible, want.infeasible)
-    got, want = en.bound_energy(c, CFG, s.spline, s.piece_time), jen.bound_energy(jc, CFG, js.spline, js.piece_time)
+    got, want = en.bound_energy(c, TCFG, s.spline, s.piece_time), jen.bound_energy(jc, CFG, js.spline, js.piece_time)
     _close(got.value, want.value)
     _close(got.infeasible, want.infeasible)
     pcs = en.piece_cps(c, s.spline)
-    _close(en.dynamic_energy(c, CFG, pcs, s.t_slack[:, None, None]),
+    _close(en.dynamic_energy(c, TCFG, pcs, s.t_slack[:, None, None]),
            jen.dynamic_energy(jc, CFG, jen.piece_cps(jc, js.spline), js.t_slack[:, None, None]))
-    _close(en.consensus_terms(c, CFG, s.spline, *s[1:]), jen.consensus_terms(jc, CFG, js.spline, *js[1:]))
-    got, want = en.spline_energy(c, CFG, s, p), jen.spline_energy(jc, CFG, js, jp)
+    _close(en.consensus_terms(c, TCFG, s.spline, *s[1:]), jen.consensus_terms(jc, CFG, js.spline, *js[1:]))
+    got, want = en.spline_energy(c, TCFG, s, p), jen.spline_energy(jc, CFG, js, jp)
     _close(got.value, want.value)
     _close(got.infeasible, want.infeasible)
     cs = torch.einsum("pij,pjd->pid", c.convert, pcs)
     jcs = jnp.einsum("pij,pjd->pid", jc.convert, jen.piece_cps(jc, js.spline))
-    _close(en.slack_energy(c, CFG, cs, s.piece_time, s.p_slack, s.t_slack, s.p_lambda, s.t_lambda),
+    _close(en.slack_energy(c, TCFG, cs, s.piece_time, s.p_slack, s.t_slack, s.p_lambda, s.t_lambda),
            jen.slack_energy(jc, CFG, jcs, js.piece_time, js.p_slack, js.t_slack, js.p_lambda, js.t_lambda))
-    got = en.true_objective(c, CFG, s.spline, s.piece_time, p)
+    got = en.true_objective(c, TCFG, s.spline, s.piece_time, p)
     want = jen.true_objective(jc, CFG, js.spline, js.piece_time, jp)
     for key in want:
         _close(got[key], want[key])
@@ -113,7 +116,7 @@ def test_trial_tables_match_jax():
     dt = np.asarray([-0.3])
     su = tt.SolverState(*(x[None] for x in s))
     pu = tt.Planes(*(x[None] for x in p))
-    tab = en.build_trial_tables(c, CFG, su, pu, torch.as_tensor(direction[None], **F64),
+    tab = en.build_trial_tables(c, TCFG, su, pu, torch.as_tensor(direction[None], **F64),
                                 torch.as_tensor(dt, **F64))
     jtab = jen.build_trial_tables(
         jc, CFG, jax.tree.map(lambda x: x[None], js), jax.tree.map(lambda x: x[None], jp),
@@ -122,27 +125,28 @@ def test_trial_tables_match_jax():
     for got, want in zip(tab, jtab):
         _close(got, want)
     for step in (0.0, 0.1, 0.5, 1.0, 3.0):
-        _close(en.trial_energy(c, CFG, tab, torch.tensor([step], **F64)),
+        _close(en.trial_energy(c, TCFG, tab, torch.tensor([step], **F64)),
                jen.trial_energy(jc, CFG, jtab, jnp.asarray([step])))
 
 
 @pytest.mark.parametrize("grad_mode", ["analytic", "autodiff"])
 def test_piece_grads_and_hessians_match_jax(grad_mode):
     cfg = CFG.replace(grad_mode=grad_mode)
+    tcfg = TCFG.replace(grad_mode=grad_mode)
     ops, (jc, js, jp, _), (c, s, p, _) = _problem(4, 3, 1.6)
     jp = jp._replace(d=jp.d + 0.02)            # every live plane strictly feasible
     p = p._replace(d=p.d + 0.02)
     jfn = jax.jit(jgr.piece_grads_and_hessians, static_argnums=(1, 9))
     for repair in (False, True):
         want = jfn(jc, cfg, js.spline, js.piece_time, jp, *js[2:], repair)
-        got = gr.piece_grads_and_hessians(c, cfg, s.spline, s.piece_time, p, *s[2:], repair=repair)
+        got = gr.piece_grads_and_hessians(c, tcfg, s.spline, s.piece_time, p, *s[2:], repair=repair)
         for g, w in zip(got, want):
             _close(g, w, rtol=1e-9)
 
 
 def test_psd_methods_other_than_gmw_are_refused():
     with pytest.raises(NotImplementedError, match="psd_method"):
-        gr.apply_psd_repair(CFG.replace(psd_method="eigh"), torch.eye(19, **F64)[None])
+        gr.apply_psd_repair(TCFG.replace(psd_method="eigh"), torch.eye(19, **F64)[None])
 
 
 @pytest.mark.parametrize("pieces", [4, 8])
@@ -151,7 +155,7 @@ def test_kkt_direction_matches_jax(pieces):
     with the block-tridiagonal factorization."""
     ops, (jc, js, jp, _), (c, s, p, _) = _problem(pieces, 4, 2.0)
     want = jax.jit(jadmm.spline_direction, static_argnums=(1,))(jc, CFG, js, jp)
-    got = admm.spline_direction(c, CFG, s, p)
+    got = admm.spline_direction(c, TCFG, s, p)
     for g, w in zip(got, want):
         _close(g, w, rtol=1e-8)
 
@@ -215,5 +219,5 @@ def test_obstacle_max_step_direct_near_contact_matches_jax():
 def test_rung_floor_lattice():
     for s, want in [(1.5, 1.0), (1.0 + 1e-6, 1.0), (1.0, 0.8), (0.9, 0.8), (0.8, 0.8 ** 2),
                     (0.79, 0.8 ** 2), (0.0, 0.0), (-1.0, 0.0), (1e-9, 0.0)]:
-        got = float(admm.rung_floor(CFG, torch.tensor(s, **F64)))
+        got = float(admm.rung_floor(TCFG, torch.tensor(s, **F64)))
         assert got == pytest.approx(want, abs=1e-12), s

@@ -1,6 +1,7 @@
 """The torch port's ADMM step, driver and CLI against the JAX package on the
 CPU, in float64, on the sphere fixture of tests/test_admm_single.py."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -17,12 +18,18 @@ from trajopt_tpu.ops import splines as sp
 from trajopt_tpu.scenes import generators as gen
 from trajopt_tpu.solver import admm as jadmm
 from trajopt_tpu.solver import driver as jdriver
+from trajopt_tpu_torch import config as tconfig
 from trajopt_tpu_torch import types as tt
 from trajopt_tpu_torch.solver import admm, driver
 
 torch.set_num_threads(1)
 F64 = dict(device="cpu", dtype=torch.float64)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def port_cfg(cfg):
+    """The port's TrajOptConfig with the JAX one's fields."""
+    return tconfig.TrajOptConfig(**dataclasses.asdict(cfg))
 
 
 @pytest.fixture(scope="module")
@@ -62,7 +69,7 @@ def test_three_admm_steps_match_jax(fixture, start):
     live = 0
     for _ in range(3):
         jstate, jdiag = jadmm.admm_step(jc, cfg, jstate, jscene)
-        state, diag = admm.admm_step(consts, cfg, state, scene)
+        state, diag = admm.admm_step(consts, port_cfg(cfg), state, scene)
         for got, want in zip(tt.to_numpy(state), jstate):
             _close(got, want, 1e-8)
         for got, want in zip(tt.to_numpy(diag), jdiag):
@@ -74,7 +81,8 @@ def test_three_admm_steps_match_jax(fixture, start):
 def test_solve_matches_jax(fixture):
     cfg, ops, wp, cloud, _, jfinal, jhist = fixture
     state, hist = driver.solve(
-        tt.device_consts(ops, **F64), cfg, tt.init_state(ops, wp, cfg.init_piece_time, **F64),
+        tt.device_consts(ops, **F64), port_cfg(cfg),
+        tt.init_state(ops, wp, cfg.init_piece_time, **F64),
         tt.make_scene(cloud, **F64), max_iters=60,
     )
     assert len(hist) == len(jhist)
@@ -87,6 +95,7 @@ def test_solve_matches_jax(fixture):
 
 def test_unported_options_raise(fixture):
     cfg, ops, wp, cloud, _, _, _ = fixture
+    cfg = port_cfg(cfg)
     args = (tt.device_consts(ops, **F64), cfg, tt.init_state(ops, wp, 20.0, **F64),
             tt.make_scene(cloud, **F64))
     with pytest.raises(NotImplementedError, match="checkpoint"):
@@ -96,28 +105,34 @@ def test_unported_options_raise(fixture):
 
 
 def test_port_runs_without_jax():
-    """Importing the port and running one CPU step leaves jax unloaded (the
-    GPU machine has no JAX installed)."""
+    """Importing the port and running one single-robot and one multi-robot
+    CPU step loads neither jax nor any module of trajopt_tpu (the GPU
+    machine has no JAX installed, and the port keeps its own copies)."""
     code = """
 import sys
 import numpy as np, torch
-from trajopt_tpu.config import TrajOptConfig
-from trajopt_tpu.ops import splines as sp
-from trajopt_tpu.scenes import generators as gen
-from trajopt_tpu import metrics
 import trajopt_tpu_torch
-from trajopt_tpu_torch import types as tt
-from trajopt_tpu_torch.cli import single
-from trajopt_tpu_torch.solver import admm, driver
+from trajopt_tpu_torch import metrics, types as tt
+from trajopt_tpu_torch.cli import multi as cli_multi, single
+from trajopt_tpu_torch.config import TrajOptConfig
+from trajopt_tpu_torch.ops import splines as sp
+from trajopt_tpu_torch.scenes import generators as gen
+from trajopt_tpu_torch.solver import admm, driver, multi
 cfg = TrajOptConfig(res=4, max_planes=16, max_ccd_candidates=16)
 cloud = gen.sphere_scene(n_points=200, radius=1.0, seed=1)
 wp = np.array([[-3.0, 0, 0], [0, 1.8, 0], [3.0, 0, 0]])
 ops = sp.build_spline_ops(2, cfg.res)
 kw = dict(device="cpu", dtype=torch.float32)
-state, diag = admm.admm_step(tt.device_consts(ops, **kw), cfg,
-                             tt.init_state(ops, wp, 20.0, **kw), tt.make_scene(cloud, **kw))
+consts, scene = tt.device_consts(ops, **kw), tt.make_scene(cloud, **kw)
+state, diag = admm.admm_step(consts, cfg, tt.init_state(ops, wp, 20.0, **kw), scene)
 assert torch.isfinite(diag.gnorm)
-assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+wps = [wp + np.array([0.0, 0.0, 0.26 * i]) for i in range(2)]
+fleet = multi.init_multi_state(ops, wps, 20.0, **kw)
+for coupled in (True, False):
+    fleet_next, diag = multi.multi_admm_step(consts, cfg.replace(ks=1e-3), fleet, scene, coupled)
+    assert torch.isfinite(diag.gnorm) and int(diag.n_planes) > 0
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "trajopt_tpu"))
+assert not loaded, loaded
 print("ok")
 """
     env = dict(os.environ, PYTHONPATH=REPO)

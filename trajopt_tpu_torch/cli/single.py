@@ -41,13 +41,12 @@ def main(argv=None) -> int:
 
     import torch
 
-    from trajopt_tpu.config import TrajOptConfig
-    from trajopt_tpu import metrics as mt
-    from trajopt_tpu.ops import splines as sp
-    from trajopt_tpu.scenes import generators as gen
-    from trajopt_tpu.scenes import io as sio
-
+    from .. import metrics as mt
     from .. import types as tt
+    from ..config import TrajOptConfig
+    from ..ops import splines as sp
+    from ..scenes import generators as gen
+    from ..scenes import io as sio
     from ..solver import driver
 
     device = torch.device("cpu" if args.cpu else "cuda")
@@ -78,7 +77,7 @@ def main(argv=None) -> int:
         if cfg.init_mode == 1 and os.path.exists(init_path):
             way_points = sio.read_waypoints(init_path)
         else:
-            from trajopt_tpu.scenes import rrt
+            from ..scenes import rrt
 
             way_points = rrt.plan(cloud, cfg)
 
@@ -117,7 +116,7 @@ def main(argv=None) -> int:
     print(f"point cloud size: {len(cloud)}")
     print(f"result written to {result_path}")
     if args.plot:
-        from trajopt_tpu import viz
+        from .. import viz
 
         viz.plot_scene(ops, cloud, spline, piece_time, args.plot,
                        waypoints=way_points, title=name)

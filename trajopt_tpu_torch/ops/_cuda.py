@@ -1,8 +1,8 @@
 """Build, load and launch-check the hand-written CUDA kernels (``csrc/*.cu``).
 
-The kernels are compiled at first use by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface and loaded with `ctypes`.  The
-library lands in ``trajopt_tpu_torch/_build/`` under a name keyed by a hash
+The kernels are compiled at first use by ``nvcc`` for ``sm_90a`` (one
+process per source, in parallel), linked into one shared library with a
+plain C interface and loaded with `ctypes`.  The library lands in ``trajopt_tpu_torch/_build/`` under a name keyed by a hash
 of the sources and flags, so an edited source rebuilds and an unchanged one
 loads in milliseconds.  Nothing here runs at import time: importing the
 package on a machine without ``nvcc`` or a GPU is fine, and only a CUDA
@@ -26,15 +26,15 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("topk.cu", "gjk.cu", "chol.cu")
+SOURCES = ("topk.cu", "gjk.cu", "gjk_fw.cu", "chol.cu")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 # Launch counts per kernel.  Each wrapper adds one where it launches its
 # kernel and nowhere else, so a run can prove its main path used them.
-LAUNCHES = {"smallest_k": 0, "gjk_exact": 0, "mod_chol": 0, "chol_solve": 0}
+LAUNCHES = {"smallest_k": 0, "gjk_exact": 0, "gjk_fw": 0, "mod_chol": 0, "chol_solve": 0}
 
 _lib: ctypes.CDLL | None = None
 build_info: dict = {}
@@ -43,6 +43,7 @@ _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "trajopt_smallest_k": [_vp, _vp, _vp, _int, _int, _int, _vp],
     "trajopt_gjk_exact": [_vp, _vp, _vp, _vp, _int, _int, _int, _vp],
+    "trajopt_gjk_fw": [_vp, _vp, _vp, _vp, _int, _int, _int, _vp],
     "trajopt_mod_chol": [_vp, _vp, _vp, _int, _int, _int, _float, _vp],
     "trajopt_chol_solve": [_vp, _vp, _vp, _int, _int, _int, _vp],
 }
@@ -75,16 +76,29 @@ def _build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".tmp{os.getpid()}")
-    cmd = [nvcc, *FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # one nvcc per source, all started together, then one link
+    objs = [tmp.with_name(f"{tmp.name}.{s}.o") for s in SOURCES]
+    cmds = [[nvcc, *FLAGS, "-c", "-o", str(o), str(CSRC / s)] for s, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    log = ""
+    for cmd, proc in zip(cmds, procs):
+        text = proc.communicate()[0]
+        log += text
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}")
+    link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+    proc = subprocess.run(link, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+            f"nvcc failed ({proc.returncode}):\n{' '.join(link)}\n{proc.stdout}{proc.stderr}"
         )
     os.replace(tmp, out)
+    for o in objs:
+        o.unlink()
     build_info.update(path=str(out), seconds=time.perf_counter() - t0, cached=False,
-                      log=proc.stdout + proc.stderr)
+                      log=log + proc.stdout + proc.stderr)
     return out
 
 

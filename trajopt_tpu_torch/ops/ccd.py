@@ -12,13 +12,16 @@ computed at three per-segment levels, each sound via select-(K+1)-and-cap:
 
 Levels 2-3 run only on the ``seg_budget`` segments with the smallest
 level-1 limits; every other segment keeps its own exact level-1 limit.
-The two `lax.cond` gates of the JAX package are Python branches here (one
-host sync each).
+The robot-pair CCD (`pair_max_step_direct` for the coupled step,
+`build_pair_ccd` + `pair_bad` for the decoupled shrink fixpoint) follows
+the same scheme on (segment, partner robot) pairs.  The `lax.cond` gates of
+the JAX package are Python branches here (one host sync each).
 """
 
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -181,7 +184,210 @@ def _obstacle_levels_23(
     rob = sel // (p * r)                                 # [W] owning robot
     s_b = torch.full((b,), float("inf"), dtype=dtype, device=device)
     s_b = s_b.scatter_reduce(0, rob, seg_ref, "amin", include_self=True)
-    unsel = s_seg_min.clone()
-    unsel[sel] = float("inf")
-    unsel = unsel.reshape(b, p, r).amin(dim=(-1, -2))
+    # index_fill with a scalar: an indexed store of a Python float would
+    # cost a host sync on the card
+    unsel = s_seg_min.index_fill(0, sel, float("inf")).reshape(b, p, r).amin(dim=(-1, -2))
     return torch.minimum(s_b, unsel)                     # [B]
+
+
+# ---------------------------------------------------------------------------
+# Robot-pair CCD (equal-time segment hulls against each other)
+# ---------------------------------------------------------------------------
+
+
+def _interval(proj):
+    """(lo, hi) over the vertex axis of a projection [..., n, D]."""
+    return proj.amin(dim=-2), proj.amax(dim=-2)
+
+
+def _not_self(gids: torch.Tensor, ut: int) -> torch.Tensor:
+    """[U, Ut] bool: fleet robot j is not local robot i."""
+    return gids[:, None] != torch.arange(ut, device=gids.device)[None, :]
+
+
+def pair_max_step_direct(
+    my_hulls, my_dhulls, all_hulls, all_dhulls, gids, offset, gjk_iters,
+    k_partners: int = 8, n_slots: int = 8,
+) -> torch.Tensor:
+    """[U] largest provably safe common step per robot against every other
+    robot (Step::couple_self_step semantics), the per-segment three-level
+    scheme of `obstacle_max_step_direct`:
+
+    1. AABB level: 3-axis pair limits for every (segment, partner); the K1
+       smallest partners per segment go to level 2 (K1), the (K1+1)-th caps.
+    2. k-DOP level: 49-axis limits on the selected partners; the S2
+       smallest go to level 3 (K1), the (S2+1)-th caps.
+    3. GJK (K2) on the 36-vertex static differences + a Lipschitz and a
+       directional rate.
+
+    ``my_*``: [U,P,R,n,3] local robots; ``all_*``: [Ut,P,R,n,3] the fleet;
+    ``gids``: [U] fleet ids of the local robots.  The plateau gate is a
+    Python branch (one host sync)."""
+    ut = all_hulls.shape[0]
+    lo3_a, hi3_a = _interval(my_hulls)                   # [U,P,R,3]
+    lo3_b, hi3_b = _interval(all_hulls)                  # [Ut,P,R,3]
+    sp3_hi_a, sp3_lo_a = _hull_speed(my_dhulls)
+    sp3_hi_b, sp3_lo_b = _hull_speed(all_dhulls)
+    g1 = lo3_a[:, None] - hi3_b[None] - offset           # [U,Ut,P,R,3]
+    s1_ = _side_limit(g1, sp3_lo_a[:, None] + sp3_hi_b[None])
+    g2 = lo3_b[None] - hi3_a[:, None] - offset
+    s2_ = _side_limit(g2, sp3_hi_a[:, None] + sp3_lo_b[None])
+    s3 = torch.maximum(s1_, s2_).amax(dim=-1)            # [U,Ut,P,R]
+    s3 = s3.permute(0, 2, 3, 1)                          # [U,P,R,Ut]
+    s3 = torch.where(_not_self(gids, ut)[:, None, None, :], torch.clamp(s3, min=0.0),
+                     float("inf")).contiguous()
+    s_seg_min = s3.amin(dim=-1)                          # [U,P,R]
+    # plateau regime: every pair limit certifies the full step
+    if bool(s_seg_min.amin() >= 1.0):
+        s_u = s_seg_min.amin(dim=(-1, -2))
+    else:
+        s_u = _pair_levels_23(my_hulls, my_dhulls, all_hulls, all_dhulls, s3, offset,
+                              gjk_iters, k_partners, n_slots)
+    return torch.clamp(s_u, 0.0, 1.0 + 1e-6)
+
+
+def _pair_levels_23(my_hulls, my_dhulls, all_hulls, all_dhulls, s3, offset, gjk_iters,
+                    k_partners, n_slots):
+    """Levels 2-3 of `pair_max_step_direct`: partner selection, k-DOP and
+    GJK, taken only when some level-1 pair limit is below the full step."""
+    u, p, r, n, _ = my_hulls.shape
+    ut = all_hulls.shape[0]
+    dtype, device = my_hulls.dtype, my_hulls.device
+
+    kp = min(k_partners, max(ut - 1, 1))
+    k1 = min(kp + 1, ut)
+    s3_all, part_all = cuda_topk.smallest_k(s3, k1)      # [U,P,R,K1(+1)]
+    s3_sel = s3_all[..., :kp]
+    part = part_all[..., :kp]                            # [U,P,R,K1] fleet ids
+    inf = torch.full(s3_all.shape[:-1], float("inf"), dtype=dtype, device=device)
+    cap1 = s3_all[..., -1] if k1 > kp else inf
+
+    ax = _axes(device, dtype)
+
+    def proj(x):   # [..., n, 3] -> [..., n, D]
+        return x[..., 0:1] * ax[:, 0] + x[..., 1:2] * ax[:, 1] + x[..., 2:3] * ax[:, 2]
+
+    lo_a0, hi_a0 = _interval(proj(my_hulls))             # [U,P,R,D]
+    spd_hi_a, spd_lo_a = _hull_speed(proj(my_dhulls))
+    p_idx = torch.arange(p, device=device)[None, :, None, None]
+    r_idx = torch.arange(r, device=device)[None, None, :, None]
+    sel_hulls1 = all_hulls[part, p_idx, r_idx]           # [U,P,R,K1,n,3]
+    sel_dhulls1 = all_dhulls[part, p_idx, r_idx]
+    sel_lo_b, sel_hi_b = _interval(proj(sel_hulls1))     # [U,P,R,K1,D]
+    sel_s_hi_b, sel_s_lo_b = _hull_speed(proj(sel_dhulls1))
+    g1 = lo_a0[..., None, :] - sel_hi_b - offset
+    s1k = _side_limit(g1, spd_lo_a[..., None, :] + sel_s_hi_b)
+    g2 = sel_lo_b - hi_a0[..., None, :] - offset
+    s2k = _side_limit(g2, spd_hi_a[..., None, :] + sel_s_lo_b)
+    s_kd = torch.maximum(s1k, s2k).amax(dim=-1)          # [U,P,R,K1]
+    s_kd = torch.maximum(torch.clamp(s_kd, min=0.0), s3_sel)
+    s_kd = torch.where(torch.isfinite(s3_sel), s_kd, float("inf"))
+
+    s2n = min(n_slots, kp)
+    k2 = min(s2n + 1, kp)
+    s_all, loc_all = cuda_topk.smallest_k(s_kd.contiguous(), k2)   # [U,P,R,S2(+1)]
+    s_sel, loc = s_all[..., :s2n], loc_all[..., :s2n]
+    cap2 = s_all[..., -1] if k2 > s2n else inf
+
+    # level 3 only when it can matter (some selected limit below the full
+    # step); skipping is strictly conservative
+    if bool(s_sel.amin() < 1.0):
+        take = loc[..., None, None].expand(loc.shape + (n, 3))
+        sel_hulls = torch.gather(sel_hulls1, 3, take)    # [U,P,R,S2,n,3]
+        sel_dhulls = torch.gather(sel_dhulls1, 3, take)
+        diff = geo.minkowski_diff(my_hulls[:, :, :, None], sel_hulls)   # [U,P,R,S2,n*n,3]
+        hd = geo.batched_origin_dist(diff.reshape(-1, n * n, 3), gjk_iters)
+        dist0 = hd.lb.reshape(loc.shape)
+        disp = _disp_norm(my_dhulls)[..., None] + _disp_norm(sel_dhulls)
+        s_ref = (dist0 - offset) / torch.clamp(disp, min=1e-12)
+        # directional bound along the GJK witness: the difference vertices
+        # move at (da_i - db_j), so the closing rate along c is
+        # max_j(db_j . c) - min_i(da_i . c)
+        vn = torch.sqrt(torch.sum(hd.v ** 2, dim=-1))
+        c = (hd.v / torch.clamp(vn, min=1e-12)[:, None]).reshape(loc.shape + (3,))
+        lcert = torch.einsum("uprsmd,uprsd->uprsm", diff, c).amin(dim=-1)
+        da_c = torch.einsum("uprnd,uprsd->uprsn", my_dhulls, c)
+        db_c = torch.einsum("uprsnd,uprsd->uprsn", sel_dhulls, c)
+        rate = db_c.amax(dim=-1) - da_c.amin(dim=-1)
+        s_dir = torch.where(rate > 0, (lcert - offset) / torch.clamp(rate, min=1e-12),
+                            float("inf"))
+        s_dir = torch.where(lcert > offset, s_dir, -float("inf"))
+        s_ref = torch.maximum(s_ref, s_dir)
+        s_ref = torch.maximum(s_sel, torch.clamp(s_ref, min=0.0))
+    else:
+        s_ref = s_sel
+    s_seg = torch.minimum(s_ref.amin(dim=-1), torch.minimum(cap1, cap2))
+    return s_seg.amin(dim=(-1, -2))                      # [U]
+
+
+class PairCCD(NamedTuple):
+    """Robot-pair CCD tables for the decoupled per-robot step fixpoint."""
+
+    my_hull: torch.Tensor    # [U,P,R,n,3]
+    my_dhull: torch.Tensor
+    my_hp: torch.Tensor      # [U,P,R,n,D] k-DOP projections
+    my_dp: torch.Tensor
+    all_hulls: torch.Tensor  # [Ut,P,R,n,3]
+    all_dhulls: torch.Tensor
+    all_hp: torch.Tensor     # [Ut,P,R,n,D]
+    all_dp: torch.Tensor
+    not_self: torch.Tensor   # [U,Ut] bool
+    n_slots: int
+
+
+def build_pair_ccd(my_hulls, my_dhulls, all_hulls, all_dhulls, gids, k_gjk: int) -> PairCCD:
+    """``my_*``: [U,P,R,n,3] local robots; ``all_*``: [Ut,...] the fleet;
+    ``gids``: [U] fleet ids of the local robots."""
+    ax_t = _axes(my_hulls.device, my_hulls.dtype).T
+    ut = all_hulls.shape[0]
+    return PairCCD(
+        my_hull=my_hulls, my_dhull=my_dhulls, my_hp=my_hulls @ ax_t, my_dp=my_dhulls @ ax_t,
+        all_hulls=all_hulls, all_dhulls=all_dhulls,
+        all_hp=all_hulls @ ax_t, all_dp=all_dhulls @ ax_t,
+        not_self=_not_self(gids, ut),
+        n_slots=max(1, min(2 * k_gjk, ut)),
+    )
+
+
+def _swept_interval(hp, dp, step):
+    """k-DOP interval of the swept hull {P} u {P + step*D}: [..., n, D] ->
+    [..., D] bounds, widening monotonically with ``step``."""
+    lo0, hi0 = _interval(hp)
+    lo1, hi1 = _interval(hp + step * dp)
+    return torch.minimum(lo0, lo1), torch.maximum(hi0, hi1)
+
+
+def pair_bad(tabs: PairCCD, my_steps, all_steps, offset, gjk_iters) -> torch.Tensor:
+    """[U] bool: some pair involving each local robot is not certified with
+    per-robot step intervals [0, s_i] x [0, s_j] (Step::self_step).
+
+    The S smallest-gap partners per segment get a GJK test (K1 selects
+    them, K2 runs it on the 4n^2-vertex swept differences); more than S
+    uncleared partners in one segment is conservatively inadmissible.  The
+    GJK gate is a Python branch (one host sync)."""
+    u, p, r, n, _ = tabs.my_hull.shape
+    sm = my_steps[:, None, None, None, None]
+    sa = all_steps[:, None, None, None, None]
+    lo_a, hi_a = _swept_interval(tabs.my_hp, tabs.my_dp, sm)
+    lo_b, hi_b = _swept_interval(tabs.all_hp, tabs.all_dp, sa)
+    gap = torch.maximum(lo_a[:, None] - hi_b[None], lo_b[None] - hi_a[:, None]).amax(dim=-1)
+    m = gap.permute(0, 2, 3, 1)                          # [U,P,R,Ut]
+    unc = tabs.not_self[:, None, None, :] & ~(m > offset)
+    s_slots = tabs.n_slots
+    over = torch.any(unc.sum(dim=-1) > s_slots, dim=-1).any(dim=-1)   # [U]
+    gm = torch.where(unc, m, float("inf")).contiguous()
+    _, idx = cuda_topk.smallest_k(gm, s_slots)           # [U,P,R,S]
+    sel_unc = torch.gather(unc, -1, idx)
+    if not bool(sel_unc.any()):
+        return over
+    p_idx = torch.arange(p, device=idx.device)[None, :, None, None]
+    r_idx = torch.arange(r, device=idx.device)[None, None, :, None]
+    sel_hulls = tabs.all_hulls[idx, p_idx, r_idx]        # [U,P,R,S,n,3]
+    sel_dhulls = tabs.all_dhulls[idx, p_idx, r_idx]
+    so = all_steps[idx][..., None, None]
+    swept_a = torch.cat([tabs.my_hull, tabs.my_hull + sm * tabs.my_dhull], dim=-2)
+    swept_b = torch.cat([sel_hulls, sel_hulls + so * sel_dhulls], dim=-2)
+    diff = geo.minkowski_diff(swept_a[:, :, :, None], swept_b).reshape(-1, 4 * n * n, 3)
+    lb = geo.batched_origin_dist(diff, gjk_iters).lb
+    ok = (lb > offset).reshape(idx.shape)
+    return over | torch.any(sel_unc & ~ok, dim=(1, 2, 3))

@@ -1,16 +1,21 @@
-"""K2: batched exact-simplex GJK distance from the origin to conv(u).
+"""K2 and K5: batched GJK distances from the origin to conv(u).
 
-Replaces `trajopt_tpu/ops/pallas_gjk.py::_gjk_exact_kernel` (wrapped there
-by `gjk_exact_diffset`).  The CUDA kernel is ``csrc/gjk.cu``.  On the card
-it is bound by one thread's dependent arithmetic chain (15 closed-form
-subset solves per iteration, at most 16 iterations on the solver's path,
-32 in `initial_clearance`); the input is only N * m * 12 bytes.  Design:
-one thread per problem with the simplex, Gram entries and best iterate in
-registers, stopping a problem at convergence instead of iterating on a
-frozen state.
+K2, `gjk_exact`, replaces `trajopt_tpu/ops/pallas_gjk.py::_gjk_exact_kernel`
+(wrapped there by `gjk_exact_diffset`).  The CUDA kernel is
+``csrc/gjk.cu``.  On the card it is bound by one thread's dependent
+arithmetic chain (15 closed-form subset solves per iteration, at most 16
+iterations on the solver's path); the input is only N * m * 12 bytes.
+Design: one thread per problem with the simplex, Gram entries and best
+iterate in registers, stopping a problem at convergence instead of
+iterating on a frozen state.  Plain version: `geometry.origin_simplex_dist`.
 
-The plain version is `ops/geometry.py::origin_simplex_dist` (the same
-algorithm, batched); this module's `gjk_exact_plain` names it.
+K5, `gjk_diffset` / `gjk_pairs` / `gjk_points`, replaces
+`trajopt_tpu/ops/pallas_gjk.py::_gjk_kernel`, the fixed-iteration
+Frank-Wolfe solver with a pairwise away step.  The CUDA kernel is
+``csrc/gjk_fw.cu``: one warp per problem, vertex j on lane j % 32, so
+m <= 64.  It is bound by the latency of its shuffle reductions (11 per
+round).  No solver step calls it: it is the independent cross-check of the
+exact solver.  Plain version: `geometry.gjk_fw_plain`.
 """
 
 from __future__ import annotations
@@ -20,9 +25,29 @@ import torch
 from . import _cuda
 from . import geometry as geo
 
+FW_MAX_M = 64   # two vertices per lane of one warp
+
 
 def gjk_exact_plain(u: torch.Tensor, iters: int) -> geo.HullDist:
     return geo.origin_simplex_dist(u, iters)
+
+
+def _check_diffsets(name: str, u: torch.Tensor) -> None:
+    if u.ndim != 3 or u.shape[-1] != 3 or u.shape[1] < 1:
+        raise ValueError(f"{name} expects [N, m, 3], got {tuple(u.shape)}")
+
+
+def _launch(name: str, symbol: str, u: torch.Tensor, iters: int) -> geo.HullDist:
+    _cuda.require_cuda_f32(name, u)
+    n, m, _ = u.shape
+    dist = torch.empty(n, dtype=u.dtype, device=u.device)
+    lb = torch.empty(n, dtype=u.dtype, device=u.device)
+    v = torch.empty(n, 3, dtype=u.dtype, device=u.device)
+    err = getattr(_cuda.lib(), symbol)(
+        u.data_ptr(), dist.data_ptr(), lb.data_ptr(), v.data_ptr(), n, m, iters, _cuda.stream()
+    )
+    _cuda.check_launch(err, name)
+    return geo.HullDist(dist=dist, lb=lb, v=v)
 
 
 def gjk_exact(u: torch.Tensor, iters: int) -> geo.HullDist:
@@ -31,18 +56,35 @@ def gjk_exact(u: torch.Tensor, iters: int) -> geo.HullDist:
     Returns HullDist(dist [N] upper bound, lb [N] certified lower bound,
     v [N, 3] witness).  CPU tensors take `gjk_exact_plain`; CUDA tensors
     launch K2 (float32, contiguous) or raise."""
-    if u.ndim != 3 or u.shape[-1] != 3 or u.shape[1] < 1:
-        raise ValueError(f"gjk_exact expects [N, m, 3], got {tuple(u.shape)}")
+    _check_diffsets("gjk_exact", u)
     if u.device.type == "cpu":
         return gjk_exact_plain(u, iters)
-    _cuda.require_cuda_f32("gjk_exact", u)
-    n, m, _ = u.shape
-    dist = torch.empty(n, dtype=u.dtype, device=u.device)
-    lb = torch.empty(n, dtype=u.dtype, device=u.device)
-    v = torch.empty(n, 3, dtype=u.dtype, device=u.device)
-    err = _cuda.lib().trajopt_gjk_exact(
-        u.data_ptr(), dist.data_ptr(), lb.data_ptr(), v.data_ptr(), n, m, iters,
-        _cuda.stream(),
-    )
-    _cuda.check_launch(err, "gjk_exact")
-    return geo.HullDist(dist=dist, lb=lb, v=v)
+    return _launch("gjk_exact", "trajopt_gjk_exact", u, iters)
+
+
+def gjk_fw_plain(u: torch.Tensor, iters: int = 24) -> geo.HullDist:
+    return geo.gjk_fw_plain(u, iters)
+
+
+def gjk_diffset(u: torch.Tensor, iters: int = 24) -> geo.HullDist:
+    """Frank-Wolfe distance from the origin to conv(u[i]), u [N, m, 3] with
+    m <= 64: HullDist(dist [N] upper bound, lb [N] certified lower bound,
+    v [N, 3]).  CPU tensors take `gjk_fw_plain`; CUDA tensors launch K5
+    (float32, contiguous) or raise."""
+    _check_diffsets("gjk_diffset", u)
+    if u.device.type == "cpu":
+        return gjk_fw_plain(u, iters)
+    if u.shape[1] > FW_MAX_M:
+        raise ValueError(f"gjk_diffset kernel takes m <= {FW_MAX_M}, got {u.shape[1]}")
+    return _launch("gjk_fw", "trajopt_gjk_fw", u, iters)
+
+
+def gjk_pairs(a: torch.Tensor, b: torch.Tensor, iters: int = 24) -> geo.HullDist:
+    """Batched hull-hull distance: a [N, ma, 3], b [N, mb, 3] (ma * mb <= 64
+    on the card); v points from B toward A."""
+    return gjk_diffset(geo.minkowski_diff(a, b).contiguous(), iters)
+
+
+def gjk_points(verts: torch.Tensor, points: torch.Tensor, iters: int = 24) -> geo.HullDist:
+    """Batched point-hull distance: verts [N, m, 3], points [N, 3]."""
+    return gjk_diffset((verts - points[:, None, :]).contiguous(), iters)

@@ -17,8 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from trajopt_tpu.config import TrajOptConfig
-
+from ..config import TrajOptConfig
 from ..types import Planes, SolverState, SplineConsts
 
 
@@ -28,13 +27,13 @@ class EnergyVal(NamedTuple):
 
 
 def piece_cps(consts: SplineConsts, spline: torch.Tensor) -> torch.Tensor:
-    """Stored rows per piece: [T,3] -> [P,n,3]."""
-    return spline[consts.piece_idx]
+    """Stored rows per piece: [..., T, 3] -> [..., P, n, 3]."""
+    return spline[..., consts.piece_idx, :]
 
 
 def seg_cps(consts: SplineConsts, spline: torch.Tensor) -> torch.Tensor:
-    """Control hulls of every subdivided segment: [P,R,n,3]."""
-    return torch.einsum("prij,pjd->prid", consts.seg_basis, piece_cps(consts, spline))
+    """Control hulls of every subdivided segment: [..., T, 3] -> [..., P, R, n, 3]."""
+    return torch.einsum("prij,...pjd->...prid", consts.seg_basis, piece_cps(consts, spline))
 
 
 def _barrier(d: torch.Tensor, margin: float, active: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,11 @@
-"""Convex collision geometry: exact simplex GJK and the k-DOP axes.
+"""Convex collision geometry: exact simplex GJK, Frank-Wolfe GJK, the
+robot-pair plane offset and the k-DOP axes.
 
-Port of the parts of `trajopt_tpu/ops/geometry.py` that the single-UAV
-solve runs.  `origin_simplex_dist` is the plain version of kernel K2
-(`ops/cuda_gjk.py`); `batched_origin_dist` is the solver's entry point and
-goes through K2's wrapper.
+Port of the parts of `trajopt_tpu/ops/geometry.py` that the single- and
+multi-robot solves run.  `origin_simplex_dist` is the plain version of
+kernel K2 and `gjk_fw_plain` that of kernel K5 (`ops/cuda_gjk.py`);
+`batched_origin_dist` is the solver's entry point and goes through K2's
+wrapper.
 
 Conservativeness (as in the reference): ``lb = min_i u_i . v / |v|`` is a
 certified lower bound on the distance at every iteration and ``dist`` an
@@ -194,6 +196,64 @@ def point_hull_distance(verts: torch.Tensor, point: torch.Tensor, iters: int = 2
     return origin_simplex_dist(verts - point[..., None, :], iters)
 
 
+def minkowski_diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Difference set of two hull batches: a [..., na, 3], b [..., nb, 3] ->
+    [..., na*nb, 3], row i*nb + j = a_i - b_j (a witness points from B
+    toward A)."""
+    return (a[..., :, None, :] - b[..., None, :, :]).flatten(-3, -2)
+
+
+def hull_hull_distance(verts_a: torch.Tensor, verts_b: torch.Tensor, iters: int = 24) -> HullDist:
+    """Distance between two convex hulls via their Minkowski difference
+    (exact simplex GJK), batched over leading axes."""
+    return origin_simplex_dist(minkowski_diff(verts_a, verts_b), iters)
+
+
+def gjk_fw_plain(u: torch.Tensor, iters: int = 24) -> HullDist:
+    """Frank-Wolfe distance from the origin to conv(u[i]), u [N, m, 3]: the
+    plain version of kernel K5 (`ops/cuda_gjk.py::gjk_diffset`), a batched
+    port of the reference's `geometry.point_hull_distance_fw`.
+
+    Starts at the first vertex of least norm; each round compares the FW
+    step toward the first argmin vertex with the pairwise step from the
+    first argmax vertex of the support (weight > 1e-10) and keeps the one
+    with the smaller |w.u|^2.  ``lb`` is certified but loose near contact."""
+    n, m, _ = u.shape
+    rows = torch.arange(n, device=u.device)
+    eye = torch.eye(m, dtype=u.dtype, device=u.device)
+    w = eye[torch.argmin((u * u).sum(-1), dim=1)]                  # [N,m]
+    lb_best = u.new_full((n,), -float("inf"))
+
+    # elementwise sums, not matrix products: duplicate vertices must score
+    # bit-identically so that ties go to the lowest index
+    def hull_point(wc):
+        return (wc[:, :, None] * u).sum(1)
+
+    for _ in range(iters):
+        v = hull_point(w)
+        vn = torch.sqrt(torch.clamp((v * v).sum(-1), min=_EPS))
+        scores = (u * v[:, None, :]).sum(-1)
+        lb_best = torch.maximum(lb_best, scores.amin(-1) / vn)
+        s = torch.argmin(scores, dim=1)
+        us = u[rows, s]
+        d_fw = us - v
+        g_fw = torch.clamp(-(v * d_fw).sum(-1) / torch.clamp((d_fw * d_fw).sum(-1), min=_EPS),
+                           0.0, 1.0)
+        w_fw = w + g_fw[:, None] * (eye[s] - w)
+        a = torch.argmax(torch.where(w > 1e-10, scores, -float("inf")), dim=1)
+        d_pw = us - u[rows, a]
+        g_pw = torch.clamp(-(v * d_pw).sum(-1) / torch.clamp((d_pw * d_pw).sum(-1), min=_EPS),
+                           min=0.0)
+        g_pw = torch.minimum(g_pw, w[rows, a])
+        w_pw = w + g_pw[:, None] * (eye[s] - eye[a])
+        f_fw = (hull_point(w_fw) ** 2).sum(-1)
+        f_pw = (hull_point(w_pw) ** 2).sum(-1)
+        w = torch.where((f_pw < f_fw)[:, None], w_pw, w_fw)
+    v = hull_point(w)
+    dist = torch.sqrt(torch.clamp((v * v).sum(-1), min=0.0))
+    return HullDist(dist=dist, lb=torch.minimum(lb_best, dist), v=v)
+
+
 def check_gjk_route(cfg, device: torch.device) -> None:
     """On the card GJK always runs kernel K2: there is no plain path for CUDA
     tensors, so ``use_pallas_gjk=False`` (which selects the plain path in the
@@ -211,6 +271,40 @@ def batched_origin_dist(diffsets: torch.Tensor, iters: int) -> HullDist:
     from . import cuda_gjk
 
     return cuda_gjk.gjk_exact(diffsets.contiguous(), min(iters, 16))
+
+
+def optimal_d(hull_a, hull_b, c, d, offset: float, margin: float, iters: int) -> torch.Tensor:
+    """Batched `geometry._optimal_d` of the reference: damped 1-D Newton on
+    the symmetric two-sided barrier in the plane offset ``d`` [B] between
+    hulls [B, n, 3] along unit normals ``c`` [B, 3], each step halved up to
+    four times to keep both sides strictly feasible; an infeasible start
+    returns ``d`` unchanged."""
+    from .gradients import _barrier_d12
+
+    da = torch.einsum("bnd,bd->bn", hull_a, c)
+    db = torch.einsum("bnd,bd->bn", hull_b, c)
+
+    def sides(dv):
+        return da + dv[:, None] - 0.5 * offset, -db - dv[:, None] - 0.5 * offset
+
+    def feasible(dv):
+        dist_a, dist_b = sides(dv)
+        return (dist_a.amin(-1) > 0) & (dist_b.amin(-1) > 0)
+
+    def derivs(dist):
+        return _barrier_d12(dist, margin, (dist > 0) & (dist < margin))
+
+    dv = d
+    for _ in range(iters):
+        dist_a, dist_b = sides(dv)
+        (ga, ha), (gb, hb) = derivs(dist_a), derivs(dist_b)
+        g = ga.sum(-1) - gb.sum(-1)
+        h = ha.sum(-1) + hb.sum(-1)
+        step = -g / torch.clamp(h, min=1e-8)
+        for _ in range(4):
+            step = torch.where(feasible(dv + step), step, 0.5 * step)
+        dv = torch.where(feasible(dv + step), dv + step, dv)
+    return torch.where(feasible(d), dv, d)
 
 
 def kdop_axes() -> np.ndarray:

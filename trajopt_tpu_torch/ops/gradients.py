@@ -16,8 +16,7 @@ from typing import NamedTuple
 import torch
 from torch.func import grad, jacfwd, vmap
 
-from trajopt_tpu.config import TrajOptConfig
-
+from ..config import TrajOptConfig
 from ..types import Planes, SplineConsts
 from . import cuda_chol
 from . import energies as en
@@ -49,18 +48,28 @@ def gather_piece_data(
     p_lambda: torch.Tensor,
     t_lambda: torch.Tensor,
 ) -> PieceData:
+    """Per-piece data with any leading robot axes folded into the piece
+    axis (leaves [B*P, ...])."""
     p = consts.piece_num
+    b = t_slack.numel() // p
+
+    def rep(x):   # [P, ...] constants -> [B*P, ...]
+        return x.expand((b,) + x.shape).reshape((b * p,) + x.shape[1:])
+
+    def fold(x, tail):
+        return x.reshape((b * p,) + x.shape[x.ndim - tail:])
+
     return PieceData(
-        seg_basis=consts.seg_basis,
-        seg_weight=torch.broadcast_to(consts.seg_weight, (p, consts.res)),
-        convert=consts.convert,
-        plane_c=planes.c,
-        plane_d=planes.d,
-        plane_mask=planes.mask,
-        p_slack=p_slack,
-        p_lambda=p_lambda,
-        t_slack=t_slack,
-        t_lambda=t_lambda,
+        seg_basis=rep(consts.seg_basis),
+        seg_weight=torch.broadcast_to(consts.seg_weight, (b * p, consts.res)),
+        convert=rep(consts.convert),
+        plane_c=fold(planes.c, 3),
+        plane_d=fold(planes.d, 2),
+        plane_mask=fold(planes.mask, 2),
+        p_slack=fold(p_slack, 2),
+        p_lambda=fold(p_lambda, 2),
+        t_slack=t_slack.reshape(-1),
+        t_lambda=t_lambda.reshape(-1),
     )
 
 
@@ -273,13 +282,14 @@ def piece_grads_and_hessians(
     t_lambda: torch.Tensor,
     repair: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """[P,19] gradients and PSD-repaired [P,19,19] Hessians of the spline
-    subproblem."""
+    """[..., P, 19] gradients and PSD-repaired [..., P, 19, 19] Hessians of
+    the spline subproblem; leading robot axes of the state (``spline``
+    [..., T, 3], ``piece_time`` [...]) fold into one batch of pieces."""
     p = consts.piece_num
+    lead = spline.shape[:-2]
     cps = en.piece_cps(consts, spline)
-    xs = torch.cat(
-        [cps.reshape(p, 3 * N_CP), torch.broadcast_to(piece_time, (p,))[:, None]], dim=1
-    )
+    times = torch.broadcast_to(piece_time[..., None], lead + (p,))
+    xs = torch.cat([cps.reshape(-1, 3 * N_CP), times.reshape(-1, 1)], dim=1)
     data = gather_piece_data(consts, planes, p_slack, t_slack, p_lambda, t_lambda)
     if cfg.grad_mode == "analytic":
         g, h = analytic_spline_gh(consts, cfg, xs, data)
@@ -287,6 +297,8 @@ def piece_grads_and_hessians(
         g, h = vmap(lambda x, d: grad_and_hess(local_spline_energy, x, d, cfg))(xs, data)
     else:
         raise ValueError(f"unknown grad_mode {cfg.grad_mode!r}")
+    g = g.reshape(lead + (p, N_LOC))
+    h = h.reshape(lead + (p, N_LOC, N_LOC))
     if not repair:
         return g, h
     return g, apply_psd_repair(cfg, h)

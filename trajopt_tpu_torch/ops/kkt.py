@@ -107,20 +107,25 @@ def free_coord_indices(consts: SplineConsts) -> torch.Tensor:
 
 
 def assemble_reduced(consts: SplineConsts, g: torch.Tensor, h: torch.Tensor) -> ReducedKKT:
-    """Scatter-add [P,19] grads and [P,19,19] Hessians into the reduced system."""
+    """Scatter-add [..., P, 19] grads and [..., P, 19, 19] Hessians into the
+    reduced system of each robot (leaves with the same leading axes)."""
     t = consts.trajectory_num
     ns = 3 * (t - 4)
     ix = free_coord_indices(consts)               # [P, 18]
     k = 3 * N_CP
-    g_cp, g_t = g[:, :k], g[:, k]
-    h_cp, h_ct, h_tt = h[:, :k, :k], h[:, :k, k], h[:, k, k]
+    lead = g.shape[:-2]
+    g_cp, g_t = g[..., :k].reshape(-1, ix.numel()), g[..., k]
+    h_cp, h_ct, h_tt = h[..., :k, :k], h[..., :k, k].reshape(-1, ix.numel()), h[..., k, k]
+    rows = g_cp.shape[0]
 
     flat2 = (ix[:, :, None] * (ns + 1) + ix[:, None, :]).reshape(-1)
-    a = h.new_zeros((ns + 1) * (ns + 1)).index_add_(0, flat2, h_cp.reshape(-1))
-    a = a.reshape(ns + 1, ns + 1)[:ns, :ns]
-    b = h.new_zeros(ns + 1).index_add_(0, ix.reshape(-1), h_ct.reshape(-1))[:ns]
-    gs = g.new_zeros(ns + 1).index_add_(0, ix.reshape(-1), g_cp.reshape(-1))[:ns]
-    return ReducedKKT(a=a, b=b, gs=gs, gt=g_t.sum(), htt=h_tt.sum())
+    a = h.new_zeros((rows, (ns + 1) * (ns + 1))).index_add_(1, flat2, h_cp.reshape(rows, -1))
+    a = a.reshape(lead + (ns + 1, ns + 1))[..., :ns, :ns]
+    b = h.new_zeros((rows, ns + 1)).index_add_(1, ix.reshape(-1), h_ct)
+    gs = g.new_zeros((rows, ns + 1)).index_add_(1, ix.reshape(-1), g_cp)
+    return ReducedKKT(a=a, b=b.reshape(lead + (ns + 1,))[..., :ns],
+                      gs=gs.reshape(lead + (ns + 1,))[..., :ns],
+                      gt=g_t.sum(-1), htt=h_tt.sum(-1))
 
 
 class LocalSolve(NamedTuple):
@@ -175,9 +180,10 @@ def correct_direction(
 
 
 def spread_direction(consts: SplineConsts, ds: torch.Tensor) -> torch.Tensor:
-    """[ns] free-coordinate direction -> [T,3] stored-row direction (pinned
-    rows zero)."""
+    """[..., ns] free-coordinate direction -> [..., T, 3] stored-row
+    direction (pinned rows zero)."""
     t = consts.trajectory_num
-    d = ds.new_zeros((t, 3))
-    d[2 : t - 2] = ds.reshape(t - 4, 3)
+    lead = ds.shape[:-1]
+    d = ds.new_zeros(lead + (t, 3))
+    d[..., 2 : t - 2, :] = ds.reshape(lead + (t - 4, 3))
     return d

@@ -16,8 +16,7 @@ from typing import NamedTuple
 import torch
 from torch.func import vmap
 
-from trajopt_tpu.config import TrajOptConfig
-
+from ..config import TrajOptConfig
 from ..ops import broadphase as bp
 from ..ops import ccd as ccd_ops
 from ..ops import cuda_chol
@@ -56,49 +55,80 @@ def _fit_obstacle_planes(cfg: TrajOptConfig, hull_f, pts_f):
     return c, d, valid
 
 
+def _planes_from_candidates(cfg: TrajOptConfig, hull, points, cand):
+    """Planes for the candidate table ``cand`` ([S,...,K] over the segment
+    hulls ``hull`` [S,n,3]): one flat GJK batch (K2) over the (segment,
+    candidate) pairs, compacted to the ``plane_gjk_budget`` nearest in-radius
+    pairs when the table is larger than the budget.  Returns flat (c [S*K,3],
+    d [S*K], ok [S*K]) and the budget-overflow flag."""
+    k = cand.idx.shape[-1]
+    nf = hull.shape[0] * k
+    budget = cfg.plane_gjk_budget
+    flat_mask = cand.mask.reshape(-1)
+    idx = cand.idx.reshape(-1)
+    overflow = flat_mask.sum() > budget
+    if nf <= budget:
+        hull_f = torch.broadcast_to(hull[:, None], (hull.shape[0], k) + hull.shape[1:])
+        c, d, valid = _fit_obstacle_planes(cfg, hull_f.reshape(nf, -1, 3), points[idx])
+        return c, d, flat_mask & valid, overflow
+    d2f = torch.where(flat_mask, cand.d2.reshape(-1), float("inf"))
+    # the JAX step calls lax.top_k directly here (not the Pallas kernel)
+    _, sel = cuda_topk.smallest_k_plain(d2f, budget)
+    c, d, valid = _fit_obstacle_planes(cfg, hull[sel // k], points[idx[sel]])
+
+    def scatter(x):
+        return torch.zeros((nf,) + x.shape[1:], dtype=x.dtype, device=x.device).index_copy(0, sel, x)
+
+    return scatter(c), scatter(d), scatter(flat_mask[sel] & valid), overflow
+
+
+def separate_planes_batch(
+    consts: SplineConsts, cfg: TrajOptConfig, splines: torch.Tensor, scene: Scene
+) -> tuple[Planes, torch.Tensor]:
+    """Fleet obstacle-plane tables with one GJK batch (K2) for all robots:
+    the in-radius (segment, obstacle) candidates of the whole fleet compact
+    to the ``plane_gjk_budget`` nearest.  ``splines`` [U,T,3] -> (planes
+    [U,P,R,K,...], overflow).  The live-candidate gate is a Python branch
+    (one host sync)."""
+    hulls = en.seg_cps(consts, splines)                     # [U,P,R,n,3]
+    radius = cfg.offset + cfg.margin
+    if cfg.broadphase_coarse_k > 0 and cfg.broadphase_piece_budget > 0:
+        cand, bp_overflow = bp.fleet_candidates(
+            hulls, scene, radius, cfg.max_planes, coarse_k=cfg.broadphase_coarse_k,
+            piece_budget=cfg.broadphase_piece_budget,
+        )
+    else:
+        cand = bp.topk_candidates(hulls, scene, radius, cfg.max_planes,
+                                  coarse_k=cfg.broadphase_coarse_k)
+        bp_overflow = torch.zeros((), dtype=torch.bool, device=splines.device)
+    shape = cand.mask.shape                                 # [U,P,R,K]
+    if not bool(cand.mask.any()):
+        # no in-radius candidate fleet-wide: no GJK, no plane
+        return Planes(c=splines.new_zeros(shape + (3,)), d=splines.new_zeros(shape),
+                      mask=torch.zeros_like(cand.mask)), bp_overflow
+    c, d, ok, overflow = _planes_from_candidates(
+        cfg, hulls.reshape((-1,) + hulls.shape[-2:]), scene.points, cand
+    )
+    return Planes(c=c.reshape(shape + (3,)), d=d.reshape(shape),
+                  mask=ok.reshape(shape)), overflow | bp_overflow
+
+
 def separate_planes(
     consts: SplineConsts, cfg: TrajOptConfig, spline: torch.Tensor, scene: Scene
 ) -> tuple[Planes, torch.Tensor]:
     """Fixed-K separating-plane table for every subdivided segment, and the
-    budget-overflow flag.  One flat batch of GJK solves over the (segment,
-    candidate) pairs, compacted to the ``plane_gjk_budget`` nearest in-radius
-    pairs when the table is larger than the budget."""
+    budget-overflow flag (`_planes_from_candidates`)."""
     if cfg.optimal_plane:
         raise NotImplementedError("optimal_plane=True is not ported to torch yet")
     hull = en.seg_cps(consts, spline)                       # [P,R,n,3]
-    radius = cfg.offset + cfg.margin
-    cand = bp.topk_candidates(hull, scene, radius, cfg.max_planes,
+    cand = bp.topk_candidates(hull, scene, cfg.offset + cfg.margin, cfg.max_planes,
                               coarse_k=cfg.broadphase_coarse_k)
-    pts = scene.points[cand.idx]                            # [P,R,K,3]
-    p, r, k, _ = pts.shape
-    n = hull.shape[-2]
-    nf = p * r * k
-    flat_mask = cand.mask.reshape(-1)
-    dtype, device = spline.dtype, spline.device
-    if nf > cfg.plane_gjk_budget:
-        budget = cfg.plane_gjk_budget
-        overflow = flat_mask.sum() > budget
-        d2f = torch.where(flat_mask, cand.d2.reshape(-1), float("inf"))
-        # the JAX step calls lax.top_k directly here (not the Pallas kernel)
-        _, sel = cuda_topk.smallest_k_plain(d2f, budget)
-        hull_f = hull.reshape(p * r, n, 3)[sel // k]
-        pts_f = pts.reshape(-1, 3)[sel]
-        c, d, valid = _fit_obstacle_planes(cfg, hull_f, pts_f)
-        c_full = torch.zeros((nf, 3), dtype=dtype, device=device)
-        c_full[sel] = c
-        d_full = torch.zeros((nf,), dtype=dtype, device=device)
-        d_full[sel] = d
-        ok_full = torch.zeros((nf,), dtype=torch.bool, device=device)
-        ok_full[sel] = flat_mask[sel] & valid
-        planes = Planes(c=c_full.reshape(p, r, k, 3), d=d_full.reshape(p, r, k),
-                        mask=ok_full.reshape(p, r, k))
-    else:
-        overflow = torch.zeros((), dtype=torch.bool, device=device)
-        hull_f = torch.broadcast_to(hull[:, :, None], (p, r, k, n, 3)).reshape(-1, n, 3)
-        c, d, valid = _fit_obstacle_planes(cfg, hull_f, pts.reshape(-1, 3))
-        planes = Planes(c=c.reshape(p, r, k, 3), d=d.reshape(p, r, k),
-                        mask=cand.mask & valid.reshape(p, r, k))
-    return planes, overflow
+    c, d, ok, overflow = _planes_from_candidates(
+        cfg, hull.reshape((-1,) + hull.shape[-2:]), scene.points, cand
+    )
+    shape = cand.mask.shape                                 # [P,R,K]
+    return Planes(c=c.reshape(shape + (3,)), d=d.reshape(shape),
+                  mask=ok.reshape(shape)), overflow
 
 
 # ---------------------------------------------------------------------------
@@ -260,23 +290,39 @@ def slack_update(
     consts: SplineConsts, cfg: TrajOptConfig, state: SolverState
 ) -> tuple[SolverState, torch.Tensor]:
     """Per-piece slack Newton + Armijo + dual ascent, batched over pieces.
-    Returns (new_state, consensus_residual)."""
+    Returns (new_state, consensus_residual).
+
+    The state may carry a leading robot axis U (the residual is then [U]):
+    the pieces of all robots form one batch (one K3 and one K4 launch).
+    A ladder stage is evaluated when any piece of any robot still lacks an
+    accepted rung, where the reference's vmapped `lax.cond` selects per
+    robot; the first accepted rung of every piece is the same either way."""
     if cfg.psd_method != "gmw":
         raise NotImplementedError(
             f"psd_method={cfg.psd_method!r} is not ported to torch; use 'gmw'"
         )
     p_num = consts.piece_num
-    c_spline = torch.einsum("pij,pjd->pid", consts.convert, en.piece_cps(consts, state.spline))
-    xs = torch.cat([state.p_slack.reshape(p_num, -1), state.t_slack[:, None]], dim=1)
+    lead = state.spline.shape[:-2]
+    n_pc = state.t_slack.numel()                     # robots x pieces
+    n_cp = gr.N_CP
+    c_spline = torch.einsum(
+        "pij,...pjd->...pid", consts.convert, en.piece_cps(consts, state.spline)
+    ).reshape(n_pc, n_cp, 3)
+    piece_time = torch.broadcast_to(state.piece_time[..., None], lead + (p_num,)).reshape(n_pc)
+    p_slack0 = state.p_slack.reshape(n_pc, n_cp, 3)
+    t_slack0 = state.t_slack.reshape(n_pc)
+    p_lambda0 = state.p_lambda.reshape(n_pc, n_cp, 3)
+    t_lambda0 = state.t_lambda.reshape(n_pc)
+    xs = torch.cat([p_slack0.reshape(n_pc, -1), t_slack0[:, None]], dim=1)
 
-    def local(x, cs, pl, tl):
-        return gr.local_slack_energy(x, cs, state.piece_time, pl, tl, consts.m_dyn, cfg)
+    def local(x, cs, pt, pl, tl):
+        return gr.local_slack_energy(x, cs, pt, pl, tl, consts.m_dyn, cfg)
 
-    g, h = vmap(lambda x, cs, pl, tl: gr.grad_and_hess(local, x, cs, pl, tl))(
-        xs, c_spline, state.p_lambda, state.t_lambda
+    g, h = vmap(lambda *a: gr.grad_and_hess(local, *a))(
+        xs, c_spline, piece_time, p_lambda0, t_lambda0
     )
     # freeze pinned end coords: zero their gradient, identity Hessian rows
-    m = _slack_freeze_mask(p_num, xs.dtype, xs.device)
+    m = _slack_freeze_mask(p_num, xs.dtype, xs.device).repeat(n_pc // p_num, 1)
     g = g * m
     eye = torch.eye(gr.N_LOC, dtype=h.dtype, device=h.device)
     h = torch.where((m[:, :, None] * m[:, None, :]) > 0, h, eye[None])
@@ -290,39 +336,39 @@ def slack_update(
     d = torch.where(bad[:, None], -g, d)
     wolfe = torch.where(bad, torch.sum(g * g, dim=1), wolfe)
 
-    d_cp = d[:, : 3 * gr.N_CP].reshape(p_num, gr.N_CP, 3)
-    d_t = d[:, 3 * gr.N_CP]
-    step = torch.ones((p_num,), dtype=xs.dtype, device=xs.device)
-    step = torch.where(state.t_slack + step * d_t <= 0, -0.95 * state.t_slack / d_t, step)
+    d_cp = d[:, : 3 * n_cp].reshape(n_pc, n_cp, 3)
+    d_t = d[:, 3 * n_cp]
+    step = torch.ones((n_pc,), dtype=xs.dtype, device=xs.device)
+    step = torch.where(t_slack0 + step * d_t <= 0, -0.95 * t_slack0 / d_t, step)
 
-    e0 = en.slack_energy(
-        consts, cfg, c_spline, state.piece_time,
-        state.p_slack, state.t_slack, state.p_lambda, state.t_lambda,
-    )
+    e0 = en.slack_energy(consts, cfg, c_spline, piece_time, p_slack0, t_slack0,
+                         p_lambda0, t_lambda0)
 
     def trial(step_vec):
         ev = en.slack_energy(
-            consts, cfg, c_spline, state.piece_time,
-            state.p_slack + step_vec[:, None, None] * d_cp,
-            state.t_slack + step_vec * d_t,
-            state.p_lambda, state.t_lambda,
+            consts, cfg, c_spline, piece_time,
+            p_slack0 + step_vec[:, None, None] * d_cp, t_slack0 + step_vec * d_t,
+            p_lambda0, t_lambda0,
         )
         return torch.where(torch.isnan(ev), float("inf"), ev)
 
-    ladder = step_candidates(cfg, xs.dtype, xs.device)[:, None] * step[None, :]   # [S,P]
+    ladder = step_candidates(cfg, xs.dtype, xs.device)[:, None] * step[None, :]   # [S,U*P]
     ok = staged_ladder_ok(vmap(lambda sv: e0 - _ARMIJO_C * wolfe * sv >= trial(sv)), ladder)
     ok = _with_floor_fallback(ok)
     step = torch.gather(ladder, 0, _first_true(ok, dim=0)[None, :])[0]
 
-    p_slack = state.p_slack + step[:, None, None] * d_cp
-    t_slack = state.t_slack + step * d_t
-    p_lambda = state.p_lambda + cfg.mu * (c_spline - p_slack)
-    t_lambda = state.t_lambda + cfg.mu * (state.piece_time - t_slack)
+    p_slack = p_slack0 + step[:, None, None] * d_cp
+    t_slack = t_slack0 + step * d_t
+    p_lambda = p_lambda0 + cfg.mu * (c_spline - p_slack)
+    t_lambda = t_lambda0 + cfg.mu * (piece_time - t_slack)
+    per_robot = lead + (p_num,)
     residual = torch.sqrt(
-        torch.sum((c_spline - p_slack) ** 2) + torch.sum((state.piece_time - t_slack) ** 2)
+        torch.sum(((c_spline - p_slack) ** 2).sum(dim=(1, 2)).reshape(per_robot), dim=-1)
+        + torch.sum(((piece_time - t_slack) ** 2).reshape(per_robot), dim=-1)
     )
     new_state = state._replace(
-        p_slack=p_slack, t_slack=t_slack, p_lambda=p_lambda, t_lambda=t_lambda
+        p_slack=p_slack.reshape(state.p_slack.shape), t_slack=t_slack.reshape(per_robot),
+        p_lambda=p_lambda.reshape(state.p_lambda.shape), t_lambda=t_lambda.reshape(per_robot),
     )
     return new_state, residual
 

@@ -1,6 +1,7 @@
-"""Outer ADMM loop driver (host-stepped).
+"""Outer ADMM loop drivers (host-stepped).
 
-Port of `trajopt_tpu/solver/driver.py::solve` and its start-up checks.
+Port of `trajopt_tpu/solver/driver.py::solve` and `solve_multi` and their
+start-up checks.
 Convergence gate: ``iter > 1 and gnorm < stop``, exactly as the reference
 (Main/admmPathPlanning3D.cpp:504).  Each iteration reads its diagnostics to
 the host once, which also ends the iteration's device work before
@@ -16,13 +17,13 @@ from typing import Callable
 import numpy as np
 import torch
 
-from trajopt_tpu.config import TrajOptConfig
-
+from ..config import TrajOptConfig
 from ..ops import broadphase as bp
 from ..ops import cuda_gjk
 from ..ops import energies as en
+from ..ops import geometry as geo
 from ..types import Scene, SolverState, SplineConsts, StepDiag
-from . import admm
+from . import admm, multi
 
 
 def initial_clearance(consts: SplineConsts, state: SolverState, scene: Scene) -> float:
@@ -40,6 +41,32 @@ def initial_clearance(consts: SplineConsts, state: SolverState, scene: Scene) ->
     return float(d.min())
 
 
+def robot_pair_hulls(consts: SplineConsts, splines: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Segment hulls (a, b) [pairs*P*R, n, 3] of every robot pair i < j at
+    equal segment index, for fleet splines [U,T,3]."""
+    hulls = en.seg_cps(consts, splines)                     # [U,P,R,n,3]
+    u, n = hulls.shape[0], hulls.shape[-2]
+    iu, ju = torch.triu_indices(u, u, 1, device=hulls.device)
+    return hulls[iu].reshape(-1, n, 3), hulls[ju].reshape(-1, n, 3)
+
+
+def pair_hull_dist(consts: SplineConsts, spline: torch.Tensor) -> geo.HullDist:
+    """Hull-hull distance of every robot pair at equal segment index
+    [pairs*P*R] (exact GJK, K2; `geometry.batched_origin_dist` caps the 48
+    iterations at 16, as the reference does)."""
+    a, b = robot_pair_hulls(consts, spline)
+    return geo.batched_origin_dist(geo.minkowski_diff(a, b), 48)
+
+
+def initial_pair_clearance(consts: SplineConsts, state: SolverState) -> float:
+    """Min hull-hull distance between robots at equal segment index, the
+    quantity the pairwise CCD certifies against ``offset``."""
+    if state.spline.shape[0] < 2:
+        return float("inf")
+    return float(pair_hull_dist(consts, state.spline).dist.min())
+
+
 def warn_on_coarse_overflow(
     consts: SplineConsts, cfg: TrajOptConfig, spline: torch.Tensor, scene: Scene
 ) -> None:
@@ -47,7 +74,7 @@ def warn_on_coarse_overflow(
     more in-radius points than ``broadphase_coarse_k``."""
     if not cfg.broadphase_coarse_k:
         return
-    hull = en.seg_cps(consts, spline)
+    hull = en.seg_cps(consts, spline)                       # [(U,)P,R,n,3]
     ov = bp.coarse_overflow(hull, scene, cfg.offset + cfg.margin, cfg.broadphase_coarse_k)
     if bool(ov.any()):
         warnings.warn(
@@ -71,6 +98,29 @@ def _warn_plane_overflow(cfg: TrajOptConfig, history: list) -> None:
             "prevents collisions) — raise the budget for dense scenes",
             stacklevel=3,
         )
+
+
+def _history_row(it: int, diag: StepDiag, piece_time: torch.Tensor, t0: float) -> dict:
+    """One iteration's history record: the diagnostics in one device-to-host
+    read, which also ends the iteration's device work before ``wall_ms``."""
+    vals = torch.stack([
+        diag.gnorm, diag.consensus_residual, diag.step, diag.ccd_step,
+        diag.n_planes.to(diag.gnorm.dtype), diag.energy,
+        torch.as_tensor(diag.plane_overflow, device=diag.gnorm.device).to(diag.gnorm.dtype),
+        piece_time,
+    ]).tolist()
+    return {
+        "iter": it,
+        "gnorm": vals[0],
+        "consensus_residual": vals[1],
+        "step": vals[2],
+        "ccd_step": vals[3],
+        "n_planes": int(vals[4]),
+        "energy": vals[5],
+        "plane_overflow": bool(vals[6]),
+        "piece_time": vals[7],
+        "wall_ms": (time.perf_counter() - t0) * 1e3,
+    }
 
 
 def solve(
@@ -109,27 +159,52 @@ def solve(
             break
         t0 = time.perf_counter()
         state, diag = admm.admm_step(consts, cfg, state, scene)
-        vals = torch.stack([
-            diag.gnorm, diag.consensus_residual, diag.step, diag.ccd_step,
-            diag.n_planes.to(diag.gnorm.dtype), diag.energy,
-            torch.as_tensor(diag.plane_overflow, device=diag.gnorm.device).to(diag.gnorm.dtype),
-            state.piece_time,
-        ]).tolist()
-        gnorm = vals[0]
-        history.append({
-            "iter": it,
-            "gnorm": gnorm,
-            "consensus_residual": vals[1],
-            "step": vals[2],
-            "ccd_step": vals[3],
-            "n_planes": int(vals[4]),
-            "energy": vals[5],
-            "plane_overflow": bool(vals[6]),
-            "piece_time": vals[7],
-            "wall_ms": (time.perf_counter() - t0) * 1e3,
-        })
+        history.append(_history_row(it, diag, state.piece_time, t0))
+        gnorm = history[-1]["gnorm"]
         _warn_plane_overflow(cfg, history)
         if callback:
             callback(it, diag)
+        it += 1
+    return state, history
+
+
+def solve_multi(
+    consts: SplineConsts,
+    cfg: TrajOptConfig,
+    state: SolverState,          # leading robot axis U on all leaves
+    scene: Scene,
+    coupled: bool | None = None,
+    max_iters: int | None = None,
+    checkpointer=None,
+) -> tuple[SolverState, list[dict]]:
+    """Host-driven multi-robot loop (coupled defaults to ``not cfg.decouple``),
+    with the history keys of `solve`; ``piece_time`` is the fleet maximum."""
+    if checkpointer is not None:
+        raise NotImplementedError("checkpointing is not ported to torch yet")
+    if cfg.optimal_plane:
+        raise NotImplementedError("optimal_plane=True is not ported to torch yet")
+    coupled = (not cfg.decouple) if coupled is None else coupled
+    max_iters = max_iters if max_iters is not None else cfg.max_iters
+    warn_on_coarse_overflow(consts, cfg, state.spline, scene)
+    clr = initial_pair_clearance(consts, state)
+    if clr <= cfg.offset:
+        warnings.warn(
+            f"initial min pairwise robot clearance {clr:.4f} <= offset "
+            f"{cfg.offset}: the pairwise CCD clamp will freeze all motion at "
+            "step 0 (the solver, like the reference's Step.h shrink loops, "
+            "requires a collision-free initialization — separate the initial "
+            "paths, e.g. by lane offsets or the RRT planner)",
+            stacklevel=2,
+        )
+    history: list[dict] = []
+    it, gnorm = 0, np.inf
+    while it < max_iters:
+        if it > 1 and gnorm < cfg.stop:
+            break
+        t0 = time.perf_counter()
+        state, diag = multi.multi_admm_step(consts, cfg, state, scene, coupled)
+        history.append(_history_row(it, diag, state.piece_time.amax(), t0))
+        gnorm = history[-1]["gnorm"]
+        _warn_plane_overflow(cfg, history)
         it += 1
     return state, history

@@ -17,7 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from trajopt_tpu.ops import splines as _sp
+from .ops import splines as _sp
 
 
 class SplineConsts(NamedTuple):
@@ -81,6 +81,15 @@ class Planes(NamedTuple):
     mask: torch.Tensor  # [P, R, K] bool
 
 
+def concat_planes(a: Planes, b: Planes) -> Planes:
+    """Concatenate plane tables along the slot axis K (any leading axes)."""
+    return Planes(
+        c=torch.cat([a.c, b.c], dim=-2),
+        d=torch.cat([a.d, b.d], dim=-1),
+        mask=torch.cat([a.mask, b.mask], dim=-1),
+    )
+
+
 class Scene(NamedTuple):
     """Static obstacle point cloud (padded to fixed N)."""
 
@@ -106,7 +115,8 @@ def make_scene(points: np.ndarray, *, device, dtype, pad_to: int | None = None) 
 
 
 class SolverState(NamedTuple):
-    """Full ADMM state for one robot."""
+    """Full ADMM state for one robot; a fleet state carries a leading robot
+    axis U on every leaf (``piece_time`` [U])."""
 
     spline: torch.Tensor      # [T, 3] stored control rows
     piece_time: torch.Tensor  # []     scalar time multiplier
