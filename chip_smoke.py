@@ -8,9 +8,10 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 Phases, each reported on its own lines with the seconds it took:
 1. card and build: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, and the time to build the CUDA kernels from ``csrc/``;
-2. every kernel (K1-K5) against its plain torch version on the card, in
-   float32, at the shapes the single-UAV and the 64-robot solves give it
-   plus edge cases;
+2. every kernel (K1-K5) against its plain torch version in float32, at the
+   shapes the single-UAV and the 64-robot solves give it plus edge cases
+   (for K1 and K2 aimed at each route: ties, signed zeros, NaN and +inf,
+   k = 1 and k = n, m = 1 to 80, duplicate vertices);
 3. the single-UAV bridge solve (the reference's benchmark scene) at P=4 and
    P=16 pieces on the card, checked against the C++ reference's trajectory
    quality (tools/ref_baseline/results.json) and, at P=4, against the
@@ -19,17 +20,27 @@ Phases, each reported on its own lines with the seconds it took:
 4. the 64-robot cross (the repository's north-star configuration) in
    coupled and decoupled mode on the card: convergence, trajectory quality
    against the C++ rows, obstacle clearance, pairwise clearance by K2
-   cross-checked by K5, launches of K1-K4 in each solve, host syncs per
-   steady iteration and the device's idle share; then 4 robots coupled on
-   the card against the port's float64 CPU run and the C++ row;
+   cross-checked by K5, launches of K1-K4 in each solve (K1 and K2 also by
+   call shape), host syncs per steady iteration and the device's idle
+   share; then 4 robots coupled on the card against the port's float64 CPU
+   run and the C++ row;
 5. per-kernel times beside their plain versions, the least time the card
    could take for the same work, and the one PyTorch call that computes the
-   same function where there is one.
+   same function where there is one; then K1 (beside `torch.topk`) and K2
+   at every shape of phase 2.  ``ms`` is per call between CUDA events (the
+   host's cost of issuing a call included), ``device_ms`` from 50 launches
+   in one CUDA graph.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failed check raises,
 so the exit code is non-zero and the last line is not printed.  Imports no
 JAX and nothing of the JAX package.
+
+    python3 chip_smoke.py --time-shapes DIR [--out FILE]
+
+runs only phase 5's K1/K2 timings of the checkout DIR's port on this
+checkout's inputs (to compare two commits on one card: parent, change,
+change, parent in one call).
 """
 
 from __future__ import annotations
@@ -66,6 +77,10 @@ KERNELS = {
     "mod_chol": ("trajopt_tpu_torch/csrc/chol.cu", "trajopt_tpu/ops/pallas_chol.py:43"),
     "chol_solve": ("trajopt_tpu_torch/csrc/chol.cu", "trajopt_tpu/ops/pallas_chol.py:90"),
 }
+# the phase-2 case whose shape_timings row stands for K1 and K2 in the
+# kernels line (64-robot coupled shapes)
+HEADLINE = {"smallest_k": "fleet coarse [32,4000] k=64",
+            "gjk_exact": "self planes [1024,36,3] iters=16"}
 
 
 class CheckFailed(AssertionError):
@@ -83,6 +98,31 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(text: str) -> list[str]:
+    """One line per kernel from nvcc's ``-Xptxas=-v`` output: its name
+    (demangled by ``c++filt`` where the machine has it) with its registers,
+    barriers, shared memory, stack frame and spills."""
+    import re
+    import shutil
+
+    entries, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            entries[name] = []
+        elif name and ("Used" in line or "spill" in line):
+            entries[name].append(line.split(":", 1)[-1].strip())
+    names = list(entries)
+    shown = names
+    if names and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True, text=True)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(names):
+            shown = [s.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+                     for s in out.stdout.splitlines()]
+    return [f"{s}: {'; '.join(entries[n])}" for s, n in zip(shown, names)]
 
 
 # ---------------------------------------------------------------------------
@@ -106,8 +146,9 @@ def _f32(device):
 
 def topk_cases(device, rng):
     """(name, x, k) at the single-UAV and 64-robot slice shapes plus ties and
-    short rows."""
+    short rows, then `testing.topk_edge_rows`."""
     import numpy as np
+    from trajopt_tpu_torch.testing import EDGE_SEED, topk_edge_rows
 
     t = _f32(device)
 
@@ -121,6 +162,19 @@ def topk_cases(device, rng):
     short[:, rng.choice(100, 5, replace=False)] = rng.random(5)
     self_d2 = dists((FLEET, FLEET_PIECES, 8, FLEET), 0.0)
     self_d2[np.arange(FLEET), :, :, np.arange(FLEET)] = np.inf
+    edges = [(name, t(a), k) for name, a, k in topk_edge_rows(np.random.default_rng(EDGE_SEED))]
+    # call shapes of the P=16 and the decoupled solves, from their own
+    # generator so that the cases above keep their inputs
+    g = np.random.default_rng(EDGE_SEED + 2)
+    d2 = g.random((FLEET, FLEET_PIECES, 8, FLEET)) ** 2 * 10.0
+    d2[np.arange(FLEET), :, :, np.arange(FLEET)] = np.inf
+    more = [
+        ("P=16 coarse [16,20000] k=64", t(g.random((16, N_POINTS)) ** 2 * 10.0), 64),
+        ("P=16 clearance [16,8,20000] k=8", t(g.random((16, 8, N_POINTS)) ** 2 * 10.0), 8),
+        ("fleet ccd level2 [64,16] k=9", t(g.random((FLEET, 16)) ** 2 * 10.0), 9),
+        ("decoupled pair ccd [64,4,8,64] k=8", t(d2 + np.round(g.random(d2.shape) * 4.0)), 8),
+        ("P=16 fine [16,8,64] k=16", t(g.random((16, 8, 64)) ** 2 * 10.0), 16),
+    ]
     return [
         ("coarse [4,20000] k=64", t(dists((4, N_POINTS), 0.1)), 64),
         ("fine [32,64] k=16", t(dists((32, 64), 0.2)), 16),
@@ -138,10 +192,14 @@ def topk_cases(device, rng):
         ("pair ccd level2 [64,4,8,8] k=5", t(dists((FLEET, FLEET_PIECES, 8, 8), 0.3)), 5),
         ("obstacle ccd segments [1,2048] k=64", t(dists((1, 2048), 0.5)), 64),
         ("obstacle ccd level1 [64,4000] k=17", t(dists((64, FLEET_POINTS), 0.3)), 17),
-    ]
+    ] + more + edges
 
 
 def check_topk(device, rng, log):
+    """K1 against its plain version (a stable sort) run on the CPU on the
+    same inputs, bit for bit: values as int32 bit patterns (-0.0 and NaN
+    included) and indices.  The CPU sort compares floats, so -0.0 ties with
+    +0.0 there; whether the card's own sort agrees is logged, not required."""
     import torch
     from trajopt_tpu_torch.ops import cuda_topk
 
@@ -149,58 +207,26 @@ def check_topk(device, rng, log):
     for name, x, k in topk_cases(device, rng):
         v, i = cuda_topk.smallest_k(x, k)
         _sync(device)
-        pv, pi = cuda_topk.smallest_k_plain(x, k)
-        check(torch.equal(v, pv), f"K1 {name}: values differ from the plain version")
+        pv, pi = cuda_topk.smallest_k_plain(x.cpu(), k)
+        v, i = v.cpu(), i.cpu()
+        check(torch.equal(v.view(torch.int32), pv.view(torch.int32)),
+              f"K1 {name}: values differ from the plain version")
         check(torch.equal(i, pi), f"K1 {name}: indices differ from the plain version")
+        cv, ci = cuda_topk.smallest_k_plain(x, k)
+        card_sort = torch.equal(cv.cpu().view(torch.int32), pv.view(torch.int32)) and \
+            torch.equal(ci.cpu(), pi)
         fin = torch.isfinite(pv)
         err = max(err, float((v[fin] - pv[fin]).abs().max()) if fin.any() else 0.0)
-        log(f"  K1 smallest_k {name}: values and indices equal")
+        log(f"  K1 smallest_k {name}, route {cuda_topk.route(x.shape[-1], k)}: values (bits) "
+            f"and indices equal{'' if card_sort else ' (the card sort differs from the CPU sort)'}")
     return err
-
-
-def brute_origin_dist(u):
-    """Exact float64 distance from the origin to conv(u[i]) (u [N,m,3]):
-    the minimum over every affinely independent vertex subset of size <= 3
-    whose affine projection of the origin has non-negative barycentrics,
-    and 0 when a 4-subset contains the origin."""
-    import itertools
-
-    import numpy as np
-
-    u = np.asarray(u, dtype=np.float64)
-    n, m, _ = u.shape
-    best = np.full(n, np.inf)
-    subsets = {k: np.array(list(itertools.combinations(range(m), k))) for k in (1, 2, 3, 4)}
-    for i in range(n):
-        for k in (1, 2, 3):
-            w = u[i][subsets[k]]                                 # [C,k,3]
-            c = len(w)
-            a = np.zeros((c, k + 1, k + 1))
-            a[:, :k, :k] = np.einsum("cid,cjd->cij", w, w)
-            a[:, :k, k] = 1.0
-            a[:, k, :k] = 1.0
-            rhs = np.zeros((c, k + 1))
-            rhs[:, k] = 1.0
-            lam = np.einsum("cij,cj->ci", np.linalg.pinv(a), rhs)[:, :k]
-            ok = (lam >= -1e-12).all(1) & (np.abs(lam.sum(1) - 1.0) < 1e-9)
-            d = np.linalg.norm(np.einsum("ci,cid->cd", lam, w), axis=1)
-            if ok.any():
-                best[i] = min(best[i], d[ok].min())
-        if m >= 4:
-            w = u[i][subsets[4]]
-            a = np.concatenate([w.transpose(0, 2, 1), np.ones((len(w), 1, 4))], axis=1)
-            rhs = np.array([0.0, 0.0, 0.0, 1.0])
-            sol = np.einsum("cij,j->ci", np.linalg.pinv(a), rhs)
-            res = np.abs(np.einsum("cij,cj->ci", a, sol) - rhs).max(1)
-            if ((sol >= -1e-12).all(1) & (res < 1e-9)).any():
-                best[i] = 0.0
-    return best
 
 
 def gjk_cases(device, rng, pair_diffs):
     """(name, u, iters, brute rows): the brute-force oracle runs on the
     first ``brute rows`` problems of each case (it is cubic-to-quartic in m)."""
     import numpy as np
+    from trajopt_tpu_torch.testing import EDGE_SEED, gjk_edge_sets
 
     t = _f32(device)
     hulls = rng.normal(size=(512, 6, 3)) * 0.3
@@ -225,12 +251,44 @@ def gjk_cases(device, rng, pair_diffs):
         ("coincident [128,6,3]", t(coincident), 16, 128),
         ("self planes [1024,36,3] iters=16", t(self_pairs), 16, 8),
         (f"fleet pairs {list(pair_diffs.shape)} iters=48 (64-robot start)", pair_diffs, 48, 8),
+    ] + gjk_callsite_cases(device) + [
+        (name, t(u), iters, n_brute)
+        for name, u, iters, n_brute in gjk_edge_sets(np.random.default_rng(EDGE_SEED + 1))]
+
+
+def gjk_callsite_cases(device):
+    """K2 at the call shapes of the P=16 and the 64-robot solves that the
+    cases above lack (own generator): plane fits [1024,6,3], and pair CCD
+    between separated hulls (the solver keeps robots apart) at [8192,36,3]
+    (6-point hulls) and [16384,144,3] (12-point hulls, the m > 64 path).
+    The pair cases have None brute rows: `check_gjk_paths` holds their lb
+    to plain's tightness and to the float64 converged distance, not to
+    plain's path."""
+    import numpy as np
+    from trajopt_tpu_torch.testing import EDGE_SEED
+
+    t = _f32(device)
+    g = np.random.default_rng(EDGE_SEED + 3)
+
+    def pairs(n, m):
+        ha = g.normal(size=(n, m, 3)) * 0.3
+        way = g.normal(size=(n, 1, 3))
+        way *= (2.2 + np.abs(g.normal(size=(n, 1, 1))) * 0.5) / np.linalg.norm(way, axis=2, keepdims=True)
+        hb = g.normal(size=(n, m, 3)) * 0.3 + way
+        return (ha[:, :, None] - hb[:, None]).reshape(n, m * m, 3)
+
+    planes = g.normal(size=(1024, 6, 3)) * 0.3 - g.normal(size=(1024, 1, 3)) * 1.5
+    return [
+        ("P=16 plane fit [1024,6,3] iters=16", t(planes), 16, 64),
+        ("coupled pair ccd [8192,36,3] iters=16", t(pairs(8192, 6)), 16, None),
+        ("decoupled pair ccd [16384,144,3] iters=16", t(pairs(16384, 12)), 16, None),
     ]
 
 
 def check_gjk(device, rng, pair_diffs, log):
     import torch
     from trajopt_tpu_torch.ops import cuda_gjk
+    from trajopt_tpu_torch.testing import brute_origin_dist
 
     err = 0.0
     for name, u, iters, n_brute in gjk_cases(device, rng, pair_diffs):
@@ -238,6 +296,9 @@ def check_gjk(device, rng, pair_diffs, log):
         _sync(device)
         ref = cuda_gjk.gjk_exact_plain(u, iters)
         scale = u.abs().amax(dim=(1, 2))
+        if n_brute is None:
+            err = max(err, check_gjk_paths(name, u, iters, hd, ref, scale, log))
+            continue
         # where the origin touches or lies in the hull, lb is a path-dependent
         # non-positive number (no separation certificate): only its soundness
         # is compared there
@@ -248,15 +309,79 @@ def check_gjk(device, rng, pair_diffs, log):
               f"K2 {name}: dist differs from plain by {float(e_dist.max()):.3g} x scale")
         check(bool((e_lb <= 1e-5).all()),
               f"K2 {name}: lb differs from plain by {float(e_lb.max()):.3g} x scale")
-        true = torch.as_tensor(brute_origin_dist(u[:n_brute].double().cpu().numpy()), device=device)
-        over = ((hd.lb[:n_brute].double() - true) / scale[:n_brute].double()).max()
-        check(float(over) <= 1e-6, f"K2 {name}: lb exceeds the true distance by {float(over):.3g} x scale")
+        over = float("-inf")
+        if n_brute:
+            true = torch.as_tensor(brute_origin_dist(u[:n_brute].double().cpu().numpy()), device=device)
+            over = float(((hd.lb[:n_brute].double() - true) / scale[:n_brute].double()).max())
+        check(over <= 1e-6, f"K2 {name}: lb exceeds the true distance by {over:.3g} x scale")
         err = max(err, float((hd.dist - ref.dist).abs().max()),
                   float(torch.where(sep, (hd.lb - ref.lb).abs(), 0.0).max()))
         log(f"  K2 gjk_exact {name}: |dist-plain|/scale {float(e_dist.max()):.2e}, "
             f"|lb-plain|/scale {float(e_lb.max()):.2e} ({int(sep.sum())} separated of {len(sep)}), "
             f"max (lb-true)/scale {float(over):.2e} on {n_brute}")
     return err
+
+
+def check_gjk_paths(name, u, iters, hd, ref, scale, log):
+    """K2 on a case where the lb of a few problems parts from the plain
+    version's.  A problem stops once its support score is within 100
+    float32 epsilons of |v|^2 (or its support vertex is already in the
+    simplex), and lb is the best support score over |v|; where in that
+    window the last score falls is decided by float32 rounding, which the
+    kernel and plain take in another order (fused multiply-adds against a
+    batched matmul for the scores).  At distances near max|u| the window is
+    a few 1e-5 x max|u|: on the pair cases the lb of 3 of 8192 and 13 of
+    16384 problems parts from plain's by more than 1e-5 x max|u| (up to
+    8.8e-5 and 1.2e-4), and the earlier one-thread-per-problem design of
+    this kernel parts on the same cases by the same amounts.  So dist is
+    held to plain as elsewhere (within 1e-5 x max|u|), both are sound
+    against the float64 converged distance (plain, 64 iterations) to 1e-6 x
+    max|u|, and the brackets dist - lb of the separated problems are as
+    tight as plain's: median and maximum within twice plain's + 1e-5 x
+    max|u|.  The control: the kernel one round short of its own last round
+    on this data (the fewest iterations whose output equals the full run's,
+    less one) must fail that test.  Returns the largest |kernel - plain| on
+    the separated problems."""
+    import torch
+    from trajopt_tpu_torch.ops import cuda_gjk
+
+    e_dist = float(((hd.dist - ref.dist).abs() / scale).max())
+    check(e_dist <= 1e-5, f"K2 {name}: dist differs from plain by {e_dist:.3g} x scale")
+    true = cuda_gjk.gjk_exact_plain(u.double(), 64).dist
+    sc = scale.double()
+    sep = ref.lb > 1e-3 * scale
+    unsound = {}
+    for who, h in (("kernel", hd), ("plain", ref)):
+        under = float(((true - h.dist.double()) / sc).max())
+        over = float(((h.lb.double() - true) / sc).max())
+        check(under <= 1e-6, f"K2 {name}: {who} dist is below the converged distance by {under:.3g} x scale")
+        check(over <= 1e-6, f"K2 {name}: {who} lb exceeds the converged distance by {over:.3g} x scale")
+        unsound[who] = max(under, over)
+
+    def width(h):
+        return ((h.dist.double() - h.lb.double()) / sc)[sep]
+
+    def faults(h, tol=1e-5):
+        got, want = width(h), width(ref)
+        return [f"{stat} dist-lb {float(f(got)):.3g} > 2 x plain's {float(f(want)):.3g} + {tol:g}"
+                for stat, f in (("median", torch.median), ("max", torch.max))
+                if float(f(got)) > 2.0 * float(f(want)) + tol]
+
+    found = faults(hd)
+    check(not found, f"K2 {name}: brackets looser than plain's: {'; '.join(found)}")
+    last = next(r for r in range(1, iters + 1) if all(
+        torch.equal(a, b) for a, b in zip(cuda_gjk.gjk_exact(u, r), hd)))
+    short = faults(cuda_gjk.gjk_exact(u, last - 1)) if last > 1 else []
+    check(short, f"K2 {name}: the tightness test does not tell {last - 1} iterations from {iters}")
+    parted = int(((hd.lb - ref.lb).abs() > 1e-5 * scale)[sep].sum())
+    log(f"  K2 gjk_exact {name}: |dist-plain|/scale {e_dist:.2e}; lb of {parted} of "
+        f"{int(sep.sum())} separated problems parts from plain's by > 1e-5 x scale (max "
+        f"{float(((hd.lb - ref.lb).abs() / scale)[sep].max()):.2e}); dist-lb median/max /scale kernel "
+        f"{float(width(hd).median()):.1e}/{float(width(hd).max()):.1e}, plain "
+        f"{float(width(ref).median()):.1e}/{float(width(ref).max()):.1e}; control at {last - 1} of "
+        f"{last} rounds fails: {short[0]}; against the float64 converged distance: max unsoundness "
+        f"kernel {unsound['kernel']:.1e}, plain {unsound['plain']:.1e}")
+    return float(torch.maximum((hd.dist - ref.dist).abs(), (hd.lb - ref.lb).abs())[sep].max())
 
 
 def fw_cases(device, rng, pair_diffs):
@@ -340,9 +465,9 @@ def check_fw(device, rng, pair_diffs, log):
     (`fw_tightness_faults`), and the kernel's own one-round output fails that
     test (the control); and from ``iters - 1`` to ``iters`` rounds the
     kernel's lb does not fall nor its dist rise beyond 1e-6 x scale."""
-    from trajopt_tpu_torch.ops import cuda_gjk
-
     import torch
+    from trajopt_tpu_torch.ops import cuda_gjk
+    from trajopt_tpu_torch.testing import brute_origin_dist
 
     err = 0.0
     for name, call, u, iters in fw_cases(device, rng, pair_diffs):
@@ -741,17 +866,19 @@ def fleet_phase(device, log):
     from trajopt_tpu_torch.ops import _cuda
     from trajopt_tpu_torch.solver import multi
 
-    launches, rows = {}, {}
+    launches, rows, by_shape = {}, {}, {}
     for coupled in (True, False):
         mode = "coupled" if coupled else "decoupled"
         _cuda.reset_launches()
         row, cfg, consts, scene, state = solve_fleet(FLEET, coupled, device, torch.float32)
         torch.cuda.synchronize()
         launches[f"u{FLEET} {mode}"] = dict(_cuda.LAUNCHES)
+        by_shape[f"u{FLEET} {mode}"] = shape_counts()
         rows[mode] = row
         log(f"  u{FLEET} {mode}: iters {row['iters']} (C++ {reference_row(mode, uavs=FLEET)['iters']}), "
             f"gnorm {row['gnorm']:.4g}, median {row['median_iter_ms']:.2f} ms/iter, "
             f"solve {row['solve_s']:.2f} s, launches {launches[f'u{FLEET} {mode}']}")
+        log(f"    K1/K2 launches by call shape: {by_shape[f'u{FLEET} {mode}']}")
         for name in ("smallest_k", "gjk_exact", "mod_chol", "chol_solve"):
             check(launches[f"u{FLEET} {mode}"][name] > 0,
                   f"u{FLEET} {mode}: kernel {name} was never launched by the solve")
@@ -784,7 +911,7 @@ def fleet_phase(device, log):
           f"{abs(small['iters'] - cpu['iters'])}")
     check_parity(f"u{SMALL_FLEET} coupled card", small, ref, log)
     check_parity(f"u{SMALL_FLEET} coupled CPU float64", cpu, ref, log)
-    return launches, rows
+    return launches, rows, by_shape
 
 
 # ---------------------------------------------------------------------------
@@ -805,6 +932,36 @@ def time_ms(fn, reps=50):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps=50):
+    """Mean ms per call with the host out of the way: ``reps`` calls
+    captured in one CUDA graph, replayed between CUDA events (best of three
+    replays, after a warm-up on a side stream).  Unlike `time_ms` it leaves
+    out the host's cost of issuing each call, which at these sizes is longer
+    than the kernels themselves; it keeps the card's gap between two
+    kernels of a graph."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    best = float("inf")
+    for _ in range(3):
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    return best
 
 
 def k2_rounds(u, iters):
@@ -851,11 +1008,57 @@ def bound_ms(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_timings(device, pair_diffs):
-    """Per kernel at one 64-robot slice shape: kernel ms and plain ms
-    (alternating kernel, plain, plain, kernel and keeping each one's best),
-    the one PyTorch call computing the same function (library ms, None where
-    there is none) and the least time the card could take (bound ms).
+def shape_timings(topk, gjk, plain_of=()):
+    """K1 and K2 at every case of `topk_cases` and `gjk_cases` (call-site
+    shapes and edge cases): ms per call (`time_ms`; best of kernel, library,
+    library, kernel), ms from a CUDA graph (`device_ms`), the same two for
+    `torch.topk(largest=False, sorted=True)` beside K1, each case's bound
+    (as in `kernel_timings`), and plain ms for the cases named in
+    ``plain_of``.  Only the wrappers' call signatures are used, so
+    ``--time-shapes`` runs it on another checkout's port as well."""
+    import torch
+    from trajopt_tpu_torch.ops import cuda_gjk, cuda_topk
+
+    rows = []
+    for name, x, k in topk:
+        n = x.shape[-1]
+        kern = lambda x=x, k=k: cuda_topk.smallest_k(x, k)
+        lib = lambda x=x, k=k: torch.topk(x, k, largest=False, sorted=True)
+        t = [time_ms(kern), time_ms(lib), time_ms(lib), time_ms(kern)]
+        bound, by = bound_ms(x.numel() * 4 + x.numel() // n * k * 12, x.numel())
+        rows.append(dict(kernel="smallest_k", case=name, n=n, k=k, ms=min(t[0], t[3]),
+                         device_ms=device_ms(kern), library_ms=min(t[1], t[2]),
+                         library_device_ms=device_ms(lib), bound_ms=bound, bound_by=by))
+        if name in plain_of:
+            plain = lambda x=x, k=k: cuda_topk.smallest_k_plain(x, k)
+            rows[-1]["plain_ms"] = min(time_ms(plain), time_ms(plain))
+    for name, u, iters, _ in gjk:
+        n, m = u.shape[0], u.shape[1]
+        kern = lambda u=u, iters=iters: cuda_gjk.gjk_exact(u, iters)
+        rounds = int(k2_rounds(u, iters).sum())
+        bound, by = bound_ms(u.numel() * 4 + n * 20, rounds * (760 + 8 * m))
+        rows.append(dict(kernel="gjk_exact", case=name, n=n, m=m, ms=min(time_ms(kern), time_ms(kern)),
+                         device_ms=device_ms(kern), library_ms=None, library_device_ms=None,
+                         rounds=rounds, bound_ms=bound, bound_by=by))
+        if name in plain_of:
+            plain = lambda u=u, iters=iters: cuda_gjk.gjk_exact_plain(u, iters)
+            rows[-1]["plain_ms"] = min(time_ms(plain, 5), time_ms(plain, 5))
+    return rows
+
+
+def kernel_timings(device, pair_diffs, rows):
+    """Per kernel at one 64-robot slice shape.  ms: per call between CUDA
+    events (`time_ms`; kernel, plain, plain, kernel, each one's best).
+    device ms: from a CUDA graph (`device_ms`), without the host's cost of
+    issuing each call, which at these sizes is longer than K1, K2 and K4
+    themselves.  plain ms: CUDA events.  library ms: the one PyTorch call
+    computing the same function, per call (None where there is none);
+    library device ms from a CUDA graph for `torch.topk` only, because the
+    MAGMA batched solvers behind `cholesky_solve` abort under capture.  For
+    K3 and K4 and their library calls, busy ms instead: the kernels' own
+    device time per call under torch.profiler (`device_busy_share`), the
+    same method for both.  bound ms: the least time the card could take.
+    K1 and K2 are the `HEADLINE` rows of `shape_timings`.
 
     Operation counts, from the sources: K1 one compare per input element;
     K2 (760 + 8m) flops per support round (Gram matrix, 15 subset solves,
@@ -868,14 +1071,10 @@ def kernel_timings(device, pair_diffs):
     (norms and their argmin)."""
     import numpy as np
     import torch
-    from trajopt_tpu_torch.ops import cuda_chol, cuda_gjk, cuda_topk
+    from trajopt_tpu_torch.ops import cuda_chol, cuda_gjk
 
     rng = np.random.default_rng(1)
     f32 = dict(dtype=torch.float32, device=device)
-    x = torch.as_tensor(rng.random((32, FLEET_POINTS)), **f32)
-    ha = rng.normal(size=(1024, 6, 3)) * 0.3
-    hb = rng.normal(size=(1024, 6, 3)) * 0.3 + rng.normal(size=(1024, 1, 3)) * 0.8
-    u = torch.as_tensor((ha[:, :, None] - hb[:, None]).reshape(1024, 36, 3), **f32)
     a = rng.normal(size=(256, 19, 19))
     h = torch.as_tensor(a @ a.transpose(0, 2, 1) + 19 * np.eye(19), **f32)
     k = rng.normal(size=(FLEET, 33, 33))
@@ -884,15 +1083,11 @@ def kernel_timings(device, pair_diffs):
     rhs = torch.as_tensor(rng.normal(size=(FLEET, 33, 2)), **f32)
     fa = pair_diffs.shape
 
-    rounds = int(k2_rounds(u, 16).sum())
+    out = {}
+    for name, case in HEADLINE.items():
+        row = next(r for r in rows if r["kernel"] == name and r["case"] == case)
+        out[name] = dict(row, shape=case.split(" ", 2)[-1])
     cases = {
-        "smallest_k": ("[32,4000] k=64", lambda: cuda_topk.smallest_k(x, 64),
-                       lambda: cuda_topk.smallest_k_plain(x, 64),
-                       lambda: torch.topk(x, 64, largest=False, sorted=True),
-                       bound_ms(x.numel() * 4 + 32 * 64 * 12, x.numel())),
-        "gjk_exact": ("[1024,36,3] iters=16", lambda: cuda_gjk.gjk_exact(u, 16),
-                      lambda: cuda_gjk.gjk_exact_plain(u, 16), None,
-                      bound_ms(u.numel() * 4 + 1024 * 20, rounds * (760 + 8 * 36))),
         "gjk_fw": (f"{list(fa)} iters=32", lambda: cuda_gjk.gjk_diffset(pair_diffs, 32),
                    lambda: cuda_gjk.gjk_fw_plain(pair_diffs, 32), None,
                    bound_ms(pair_diffs.numel() * 4 + fa[0] * 20,
@@ -906,22 +1101,78 @@ def kernel_timings(device, pair_diffs):
                        lambda: torch.cholesky_solve(rhs, l33),
                        bound_ms(l33.numel() * 4 + 2 * rhs.numel() * 4, FLEET * 2 * 2 * 33 ** 2)),
     }
-    out = {}
     for name, (shape, kern, plain, library, (bound, bound_by)) in cases.items():
-        reps_plain = 5 if name in ("gjk_exact", "gjk_fw") else 50
+        reps_plain = 5 if name == "gjk_fw" else 50
         k1 = time_ms(kern)
         p1 = time_ms(plain, reps_plain)
         p2 = time_ms(plain, reps_plain)
         k2 = time_ms(kern)
         lib = None if library is None else min(time_ms(library), time_ms(library))
-        out[name] = dict(shape=shape, ms=min(k1, k2), plain_ms=min(p1, p2), library_ms=lib,
+        out[name] = dict(shape=shape, ms=min(k1, k2), device_ms=device_ms(kern),
+                         plain_ms=min(p1, p2), library_ms=lib, library_device_ms=None,
                          bound_ms=bound, bound_by=bound_by)
+        if library is not None:
+            out[name]["busy_ms"] = device_busy_share(kern, 20)[0] / 20
+            out[name]["library_busy_ms"] = device_busy_share(library, 20)[0] / 20
+    return out
+
+
+def time_other_port(port, out_path):
+    """``--time-shapes``: `shape_timings` of the port in checkout ``port``
+    on this checkout's inputs, written as one JSON object to ``out_path``
+    (stdout if None), after `check_gjk_paths` on its K2 (logged to stderr).
+    The inputs are made with this checkout's package, which is then
+    unloaded so that ``port``'s is imported in its place.  To compare two
+    commits on one card, run parent, change, change, parent in one call."""
+    import numpy as np
+    import torch
+
+    device = torch.device("cuda", 0)
+    pair_diffs = fleet_pair_diffs(device)
+    rng = np.random.default_rng(2)
+    topk, gjk = topk_cases(device, rng), gjk_cases(device, rng, pair_diffs)
+    for mod in [m for m in sys.modules if m.split(".")[0] == "trajopt_tpu_torch"]:
+        del sys.modules[mod]
+    sys.path.insert(0, os.path.abspath(port))
+    import trajopt_tpu_torch
+    from trajopt_tpu_torch.ops import cuda_gjk
+
+    for name, u, iters, n_brute in gjk:
+        if n_brute is None:
+            check_gjk_paths(name, u, iters, cuda_gjk.gjk_exact(u, iters), cuda_gjk.gjk_exact_plain(u, iters),
+                            u.abs().amax(dim=(1, 2)), lambda line: print(line, file=sys.stderr, flush=True))
+    text = json.dumps({"package": os.path.dirname(trajopt_tpu_torch.__file__),
+                       "card": nvidia_smi_line(), "rows": shape_timings(topk, gjk)})
+    if out_path is None:
+        print(text)
+    else:
+        with open(out_path, "w") as f:
+            f.write(text + "\n")
+    return 0
+
+
+def shape_counts(names=("smallest_k", "gjk_exact")):
+    """{kernel: {call shape: launches}} since the last reset of the counts."""
+    from trajopt_tpu_torch.ops import _cuda
+
+    out = {name: {} for name in names}
+    for (name, shape), c in _cuda.LAUNCH_SHAPES.items():
+        if name in out:
+            out[name][_cuda.shape_label(shape)] = c
     return out
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="On-card smoke test of trajopt_tpu_torch.")
+    ap.add_argument("--time-shapes", metavar="DIR",
+                    help="only time the K1 and K2 of the checkout DIR at every phase-2 case "
+                         "(this checkout's inputs) and print them as JSON")
+    ap.add_argument("--out", metavar="FILE", help="with --time-shapes: write the JSON to FILE")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -929,6 +1180,8 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
+    if args.time_shapes:
+        return time_other_port(args.time_shapes, args.out)
     from trajopt_tpu_torch.ops import _cuda
 
     log = lambda s: print(s, flush=True)
@@ -951,9 +1204,8 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     _cuda.lib()
     log(f"kernel build: {_cuda.build_info['seconds']:.2f} s (cached={_cuda.build_info['cached']})")
-    for line in _cuda.build_info["log"].splitlines():
-        if "Used" in line or "spill" in line:
-            log("  ptxas: " + line.strip())
+    for line in ptxas_report(_cuda.build_info["log"]):
+        log("  ptxas: " + line)
     phase_done(1)
 
     # -- phase 2 ------------------------------------------------------------
@@ -964,16 +1216,18 @@ def main() -> int:
 
     # -- phase 3 ------------------------------------------------------------
     log("== phase 3: single-UAV bridge solves (float32, on the card)")
-    launches = {}
+    launches, by_shape = {}, {}
     for pieces in SLICE_PIECES:
         _cuda.reset_launches()
         row = solve_case(pieces, device, torch.float32)
         torch.cuda.synchronize()
         launches[f"single p{pieces}"] = dict(_cuda.LAUNCHES)
+        by_shape[f"single p{pieces}"] = shape_counts()
         log(f"  p{pieces}: iters {row['iters']}, gnorm {row['gnorm']:.4g}, "
             f"ccd_time {row['ccd_time']:.4f}, ccd_len {row['ccd_len']:.4f}, "
             f"min clearance {row['min_clearance']:.4f}, median {row['median_iter_ms']:.2f} ms/iter, "
             f"solve {row['solve_s']:.2f} s, launches {launches[f'single p{pieces}']}")
+        log(f"    K1/K2 launches by call shape: {by_shape[f'single p{pieces}']}")
         for name in ("smallest_k", "gjk_exact", "mod_chol", "chol_solve"):
             check(launches[f"single p{pieces}"][name] > 0,
                   f"p{pieces}: kernel {name} was never launched by the solve")
@@ -990,18 +1244,42 @@ def main() -> int:
 
     # -- phase 4 ------------------------------------------------------------
     log(f"== phase 4: {FLEET}-robot cross, coupled and decoupled (float32, on the card)")
-    fleet_launches, _ = fleet_phase(device, log)
+    fleet_launches, _, fleet_shapes = fleet_phase(device, log)
     launches.update(fleet_launches)
+    by_shape.update(fleet_shapes)
     phase_done(4)
 
     # -- phase 5 ------------------------------------------------------------
-    log(f"== phase 5: kernel, plain, library and bound times at {FLEET}-robot shapes "
-        f"(CUDA events; {smi})")
-    times = kernel_timings(device, pair_diffs)
+    log(f"== phase 5: kernel, plain, library and bound times ({smi}); ms per call between "
+        "CUDA events, device ms from 50 launches in one CUDA graph")
+    import numpy as np
+    from trajopt_tpu_torch.ops import cuda_topk
+
+    rng = np.random.default_rng(2)
+    rows = shape_timings(topk_cases(device, rng), gjk_cases(device, rng, pair_diffs),
+                         plain_of=set(HEADLINE.values()))
+    times = kernel_timings(device, pair_diffs, rows)
     for name, tm in times.items():
-        lib = "none" if tm["library_ms"] is None else f"{tm['library_ms']:.4f} ms"
-        log(f"  {name} {tm['shape']}: kernel {tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, "
-            f"library {lib}, bound {tm['bound_ms']:.5f} ms ({tm['bound_by']})")
+        lib = "none" if tm["library_ms"] is None else f"{tm['library_ms']:.4f} ms per call" + (
+            "" if tm["library_device_ms"] is None else f" ({tm['library_device_ms']:.4f} device)")
+        busy = "" if "busy_ms" not in tm else \
+            f"; busy (torch.profiler) kernel {tm['busy_ms']:.4f}, library {tm['library_busy_ms']:.4f} ms"
+        log(f"  {name} {tm['shape']}: kernel {tm['ms']:.4f} ms per call ({tm['device_ms']:.4f} "
+            f"device), plain {tm['plain_ms']:.4f} ms, library {lib}, bound {tm['bound_ms']:.5f} ms "
+            f"({tm['bound_by']}){busy}")
+    k1 = times["smallest_k"]
+    log(f"  K1 / torch.topk at {k1['shape']}: per call {k1['ms']:.4f} / {k1['library_ms']:.4f} ms "
+        f"= {k1['ms'] / k1['library_ms']:.2f}; device {k1['device_ms']:.4f} / "
+        f"{k1['library_device_ms']:.4f} ms = {k1['device_ms'] / k1['library_device_ms']:.2f}")
+    log("  K1 and K2 at every case of phase 2 (ms per call / device ms; bound):")
+    for r in rows:
+        if r["kernel"] == "smallest_k":
+            log(f"    K1 {r['case']} route {cuda_topk.route(r['n'], r['k'])}: kernel "
+                f"{r['ms']:.4f} / {r['device_ms']:.4f}, torch.topk {r['library_ms']:.4f} / "
+                f"{r['library_device_ms']:.4f}, bound {r['bound_ms']:.5f} ({r['bound_by']})")
+        else:
+            log(f"    K2 {r['case']}: kernel {r['ms']:.4f} / {r['device_ms']:.4f}, bound "
+                f"{r['bound_ms']:.5f} ({r['bound_by']}, {r['rounds']} support rounds)")
     phase_done(5)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -1014,9 +1292,13 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[path[name]][name], "max_abs_err": errs[name],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
-            "bound_by": tm["bound_by"], "library_ms": tm["library_ms"],
+            "bound_by": tm["bound_by"], "library_ms": tm["library_ms"], "shape": tm["shape"],
+            "device_ms": tm["device_ms"], "library_device_ms": tm["library_device_ms"],
+            **{key: tm[key] for key in ("busy_ms", "library_busy_ms") if key in tm},
             "launches_by_path": {p: c[name] for p, c in launches.items()},
         })
+        if name in ("smallest_k", "gjk_exact"):
+            kernels[-1]["launches_by_shape"] = {p: c[name] for p, c in by_shape.items()}
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

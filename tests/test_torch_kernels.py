@@ -16,6 +16,7 @@ import torch
 
 from trajopt_tpu.ops import geometry as jgeo
 from trajopt_tpu.ops import smallchol as jsc
+from trajopt_tpu_torch import testing as kernel_cases
 from trajopt_tpu_torch.config import TrajOptConfig
 from trajopt_tpu_torch.ops import _cuda, cuda_chol, cuda_gjk, cuda_topk
 from trajopt_tpu_torch.ops import geometry as geo
@@ -42,6 +43,93 @@ def test_smallest_k_matches_lax_top_k(seed):
         vals, idx = cuda_topk.smallest_k(torch.as_tensor(x, **F64), k)
         np.testing.assert_array_equal(vals.numpy(), -np.asarray(neg))
         np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+
+
+# the edge cases on which chip_smoke.py holds K1 and K2 to their plain
+# versions on the card (bit-equal for K1, within 1e-5 x scale for K2):
+# here the plain versions are pinned to the JAX functions on the same rows
+_EDGE_ROWS = kernel_cases.topk_edge_rows(np.random.default_rng(kernel_cases.EDGE_SEED))
+_GJK_EDGES = kernel_cases.gjk_edge_sets(np.random.default_rng(kernel_cases.EDGE_SEED + 1))
+
+
+@pytest.fixture
+def interpret_mode():
+    """Run a Pallas kernel in its interpreter, as tests/test_pallas_gjk.py."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    with pltpu.force_tpu_interpret_mode():
+        yield
+
+
+@pytest.mark.parametrize("name,x,k", _EDGE_ROWS, ids=[c[0] for c in _EDGE_ROWS])
+def test_smallest_k_edge_rows_match_lax_top_k(name, x, k):
+    """Ties across the cut, all-equal rows, signed zeros, NaN and +inf,
+    k = 1 and k = n, n past the warp route, past the shared-memory cap, the
+    large-k route.  `lax.top_k` orders -0.0 before +0.0 (a total order),
+    where K1, its plain version and the Pallas kernel tie them by index
+    (`test_smallest_k_ties_match_pallas_kernel`): the indices are compared
+    with `lax.top_k` on ``x + 0.0``, which turns -0.0 into +0.0, and the
+    values must be the input's own floats, bit for bit."""
+    vals, idx = cuda_topk.smallest_k(torch.as_tensor(x, **F64), k)
+    neg, jidx = jax.lax.top_k(-jnp.asarray(x + 0.0), k)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(vals.numpy(), -np.asarray(neg))
+    own = np.take_along_axis(x, idx.numpy(), axis=-1)
+    np.testing.assert_array_equal(vals.numpy().view(np.int64), own.view(np.int64))
+
+
+_TIE_ROWS = [c for c in _EDGE_ROWS
+             if c[2] <= 64 and ("tie" in c[0] or "equal" in c[0] or "0.0" in c[0])]
+
+
+@pytest.mark.parametrize("name,x,k", _TIE_ROWS, ids=[c[0] for c in _TIE_ROWS])
+def test_smallest_k_ties_match_pallas_kernel(interpret_mode, name, x, k):
+    """The TPU kernel (`pallas_topk._select_kernel`, interpret mode, float32)
+    breaks ties by index and ties -0.0 with +0.0, as K1 does; its values are
+    the row minima, so they are compared as numbers."""
+    from trajopt_tpu.ops import pallas_topk
+
+    x32 = x.astype(np.float32)
+    pv, pi = pallas_topk._smallest_k_flat(jnp.asarray(x32), k)
+    vals, idx = cuda_topk.smallest_k(torch.as_tensor(x32), k)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(pi))
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(pv))
+
+
+@pytest.mark.parametrize(
+    "n,k,want",
+    [(1, 1, "warp"), (33, 9, "warp"), (256, 32, "warp"), (33, 33, "radix"), (256, 256, "radix"),
+     (257, 32, "radix"), (257, 257, "radix"), (60000, 64, "radix"), (4000, 1024, "radix"),
+     (3000, 1025, "rounds")],
+)
+def test_smallest_k_route_by_shape(n, k, want):
+    assert cuda_topk.route(n, k) == want
+
+
+def test_edge_rows_reach_the_route_they_name():
+    for name, x, k in _EDGE_ROWS:
+        assert f"({cuda_topk.route(x.shape[-1], k)})" in name
+
+
+@pytest.mark.parametrize("name,u,iters,n_brute", _GJK_EDGES, ids=[c[0] for c in _GJK_EDGES])
+def test_gjk_exact_plain_edge_sets_match_jax(name, u, iters, n_brute):
+    """m = 1 to 80 and duplicate vertices (exact ties in the support argmin):
+    the plain version against `geometry.origin_simplex_dist` in float64;
+    dist everywhere and lb where the origin is separated, to 1e-10; both
+    sound against the converged value and the brute-force distance."""
+    want = jax.vmap(lambda d: jgeo.origin_simplex_dist(d, iters))(jnp.asarray(u))
+    got = cuda_gjk.gjk_exact(torch.as_tensor(u, **F64), iters)
+    true = np.asarray(jax.vmap(lambda d: jgeo.origin_simplex_dist(d, 64).dist)(jnp.asarray(u)))
+    scale = np.abs(u).max(axis=(1, 2))
+    sep = true > 1e-3 * scale
+    np.testing.assert_allclose(got.dist.numpy(), np.asarray(want.dist), rtol=1e-10,
+                               atol=1e-10 * scale.max())
+    np.testing.assert_allclose(got.lb.numpy()[sep], np.asarray(want.lb)[sep], rtol=1e-10)
+    assert (got.lb.numpy() <= true + 1e-9 * scale).all()
+    assert (got.dist.numpy() >= true - 1e-9 * scale).all()
+    brute = kernel_cases.brute_origin_dist(u[:n_brute])
+    assert (got.lb.numpy()[:n_brute] <= brute + 1e-9 * scale[:n_brute]).all()
+    np.testing.assert_allclose(true[:n_brute], brute, atol=1e-9 * scale.max())
 
 
 def _gjk_sets(seed):

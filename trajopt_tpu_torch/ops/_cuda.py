@@ -14,6 +14,7 @@ floats for equality and the GMW pivot rule relies on IEEE division/sqrt.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -34,14 +35,18 @@ FLAGS = (
 
 # Launch counts per kernel.  Each wrapper adds one where it launches its
 # kernel and nowhere else, so a run can prove its main path used them.
+# LAUNCH_SHAPES splits the same counts by (kernel, call shape key).
 LAUNCHES = {"smallest_k": 0, "gjk_exact": 0, "gjk_fw": 0, "mod_chol": 0, "chol_solve": 0}
+LAUNCH_SHAPES: collections.Counter = collections.Counter()
 
 _lib: ctypes.CDLL | None = None
 build_info: dict = {}
 
 _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "trajopt_smallest_k": [_vp, _vp, _vp, _int, _int, _int, _vp],
+    "trajopt_smallest_k_warp": [_vp, _vp, _vp, _int, _int, _int, _vp],
+    "trajopt_smallest_k_radix": [_vp, _vp, _vp, _int, _int, _int, _vp],
+    "trajopt_smallest_k_rounds": [_vp, _vp, _vp, _int, _int, _int, _vp],
     "trajopt_gjk_exact": [_vp, _vp, _vp, _vp, _int, _int, _int, _vp],
     "trajopt_gjk_fw": [_vp, _vp, _vp, _vp, _int, _int, _int, _vp],
     "trajopt_mod_chol": [_vp, _vp, _vp, _int, _int, _int, _float, _vp],
@@ -52,6 +57,7 @@ _SIGNATURES = {
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCH_SHAPES.clear()
 
 
 def _nvcc() -> str:
@@ -117,13 +123,16 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def check_launch(err: int, name: str) -> None:
+def check_launch(err: int, name: str, shape: tuple = ()) -> None:
     """Raise if a launch was refused (the kernel then never ran, and a later
-    synchronize would not report it); otherwise count the launch."""
+    synchronize would not report it); otherwise count the launch, also
+    under ``shape``: (input shape, parameter name, value), formatted only
+    when read (`shape_label`)."""
     if err != 0:
         msg = lib().trajopt_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
     LAUNCHES[name] += 1
+    LAUNCH_SHAPES[(name, shape)] += 1
 
 
 def require_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
@@ -137,5 +146,17 @@ def require_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: the CUDA kernel takes contiguous tensors")
 
 
+def shape_label(shape: tuple) -> str:
+    """The label of a shape key: (torch.Size([32, 4000]), "k", 64) reads
+    "[32,4000] k=64"."""
+    if not shape:
+        return ""
+    dims, param, value = shape
+    return f"[{','.join(map(str, dims))}] {param}={value}"
+
+
 def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current device's current CUDA stream, as a raw handle: what
+    ``torch.cuda.current_stream().cuda_stream`` gives without building a
+    Stream object, which costs more host time than a launch."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())

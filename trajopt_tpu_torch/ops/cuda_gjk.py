@@ -2,12 +2,14 @@
 
 K2, `gjk_exact`, replaces `trajopt_tpu/ops/pallas_gjk.py::_gjk_exact_kernel`
 (wrapped there by `gjk_exact_diffset`).  The CUDA kernel is
-``csrc/gjk.cu``.  On the card it is bound by one thread's dependent
-arithmetic chain (15 closed-form subset solves per iteration, at most 16
-iterations on the solver's path); the input is only N * m * 12 bytes.
-Design: one thread per problem with the simplex, Gram entries and best
-iterate in registers, stopping a problem at convergence instead of
-iterating on a frozen state.  Plain version: `geometry.origin_simplex_dist`.
+``csrc/gjk.cu``.  On the card it is bound by the latency of each round's
+dependent chain (at most 16 rounds on the solver's path); the input is only
+N * m * 12 bytes.  Design: one group of 16 lanes per problem, two problems
+a warp.  Each lane keeps its vertices j = lane (mod 16), scaled, in
+registers (m <= 64; a larger m is read again from device memory), solves
+one of the 15 vertex subsets a round, and group argmins pick the subset and
+the support vertex; a problem stops at convergence instead of iterating on
+a frozen state.  Plain version: `geometry.origin_simplex_dist`.
 
 K5, `gjk_diffset` / `gjk_pairs` / `gjk_points`, replaces
 `trajopt_tpu/ops/pallas_gjk.py::_gjk_kernel`, the fixed-iteration
@@ -46,7 +48,7 @@ def _launch(name: str, symbol: str, u: torch.Tensor, iters: int) -> geo.HullDist
     err = getattr(_cuda.lib(), symbol)(
         u.data_ptr(), dist.data_ptr(), lb.data_ptr(), v.data_ptr(), n, m, iters, _cuda.stream()
     )
-    _cuda.check_launch(err, name)
+    _cuda.check_launch(err, name, (u.shape, "iters", iters))
     return geo.HullDist(dist=dist, lb=lb, v=v)
 
 
