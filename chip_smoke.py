@@ -8,10 +8,14 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 Phases, each reported on its own lines with the seconds it took:
 1. card and build: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, and the time to build the CUDA kernels from ``csrc/``;
-2. every kernel (K1-K5) against its plain torch version in float32, at the
-   shapes the single-UAV and the 64-robot solves give it plus edge cases
-   (for K1 and K2 aimed at each route: ties, signed zeros, NaN and +inf,
-   k = 1 and k = n, m = 1 to 80, duplicate vertices);
+2. every kernel (K1-K5 and the fused K3 + K4 launch) against its plain
+   torch version in float32, at the shapes the single-UAV and the 64-robot
+   solves give it plus edge cases (for K1 and K2 aimed at each route: ties,
+   signed zeros, NaN and +inf, k = 1 and k = n, m = 1 to 80, duplicate
+   vertices; for K3, K4 and the fused kernel: m = 1 to 64 on each side of
+   the tiers, zero, diagonal, negative definite and scaled blocks, batches
+   of 1 and 4097, ``gmw=False`` on non-PD blocks, four right-hand-side
+   layouts);
 3. the single-UAV bridge solve (the reference's benchmark scene) at P=4 and
    P=16 pieces on the card, checked against the C++ reference's trajectory
    quality (tools/ref_baseline/results.json) and, at P=4, against the
@@ -20,16 +24,20 @@ Phases, each reported on its own lines with the seconds it took:
 4. the 64-robot cross (the repository's north-star configuration) in
    coupled and decoupled mode on the card: convergence, trajectory quality
    against the C++ rows, obstacle clearance, pairwise clearance by K2
-   cross-checked by K5, launches of K1-K4 in each solve (K1 and K2 also by
-   call shape), host syncs per steady iteration and the device's idle
+   cross-checked by K5, launches of K1-K4 and the fused kernel in each
+   solve, also by call shape, host syncs per steady iteration and the
+   device's idle
    share; then 4 robots coupled on the card against the port's float64 CPU
    run and the C++ row;
 5. per-kernel times beside their plain versions, the least time the card
    could take for the same work, and the one PyTorch call that computes the
    same function where there is one; then K1 (beside `torch.topk`) and K2
-   at every shape of phase 2.  ``ms`` is per call between CUDA events (the
-   host's cost of issuing a call included), ``device_ms`` from 50 launches
-   in one CUDA graph.
+   at every shape of phase 2, and K3, K4 and the fused kernel at every
+   call-site shape beside their latency floor (an empty kernel plus m or
+   2m dependent steps, measured by a one-warp probe); last, what the
+   P = 16 KKT (ns = 141) pays outside the kernels.  ``ms`` is per call
+   between CUDA events (the host's cost of issuing a call included),
+   ``device_ms`` from 50 launches in one CUDA graph.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -38,8 +46,9 @@ JAX and nothing of the JAX package.
 
     python3 chip_smoke.py --time-shapes DIR [--out FILE]
 
-runs only phase 5's K1/K2 timings of the checkout DIR's port on this
-checkout's inputs (to compare two commits on one card: parent, change,
+runs only phase 5's K1/K2 and K3/K4 shape timings of the checkout DIR's
+port on this checkout's inputs, with a digest of each Cholesky output (to
+compare two commits on one card, in time and bit for bit: parent, change,
 change, parent in one call).
 """
 
@@ -76,7 +85,11 @@ KERNELS = {
     "gjk_fw": ("trajopt_tpu_torch/csrc/gjk_fw.cu", "trajopt_tpu/ops/pallas_gjk.py:35"),
     "mod_chol": ("trajopt_tpu_torch/csrc/chol.cu", "trajopt_tpu/ops/pallas_chol.py:43"),
     "chol_solve": ("trajopt_tpu_torch/csrc/chol.cu", "trajopt_tpu/ops/pallas_chol.py:90"),
+    "factor_solve": ("trajopt_tpu_torch/csrc/chol.cu",
+                     "trajopt_tpu/ops/pallas_chol.py:43 and :90 (one launch for both)"),
 }
+# the kernels every solve must launch (K5 runs in the clearance cross-check)
+SOLVE_KERNELS = ("smallest_k", "gjk_exact", "mod_chol", "chol_solve", "factor_solve")
 # the phase-2 case whose shape_timings row stands for K1 and K2 in the
 # kernels line (64-robot coupled shapes)
 HEADLINE = {"smallest_k": "fleet coarse [32,4000] k=64",
@@ -540,38 +553,84 @@ def chol_cases(device, rng):
     ]
 
 
+def chol_edge_cases(device):
+    """`testing.chol_edge_blocks` on the card (own generator, so that the
+    cases above keep their inputs): (name, h, positive definite)."""
+    import numpy as np
+    from trajopt_tpu_torch.testing import EDGE_SEED, chol_edge_blocks
+
+    t = _f32(device)
+    return [(name, t(h), kind == "pd")
+            for name, h, kind in chol_edge_blocks(np.random.default_rng(EDGE_SEED + 4))]
+
+
 def check_chol(device, rng, log):
+    """K3 against its plain version on the call-site shapes and the edge
+    blocks: L and e within 1e-4 relative, |L L^T - (h + diag e)| within
+    1e-5 |h| (on the indefinite edge blocks, twice the plain version's if
+    that is more), no boost on a positive-definite block, ``gmw=False`` equal to
+    the GMW factor there and NaN where plain's is NaN elsewhere (but 0 on
+    the diagonal at a zero pivot), zeros above
+    the diagonal, and ``want_l=False`` giving the same e bit for bit.
+    Returns the largest abs error and, for every case, (name, h, the
+    kernel's l and e, plain's l and e)."""
     import torch
     from trajopt_tpu_torch.ops import cuda_chol
 
     err = 0.0
     factors = []
-    for name, h, pd in chol_cases(device, rng):
+    for name, h, pd in chol_cases(device, rng) + chol_edge_cases(device):
         l, e = cuda_chol.mod_chol(h)
+        none, e_only = cuda_chol.mod_chol(h, want_l=False)
         _sync(device)
         pl, pe = cuda_chol.mod_chol_plain(h)
+        check(none is None and torch.equal(e_only, e), f"K3 {name}: want_l=False changes e")
+        check(bool((l.triu(1) == 0).all()), f"K3 {name}: L is not lower triangular")
         if pd:
             check(bool((e == 0).all()) and bool((pe == 0).all()),
                   f"K3 {name}: GMW boosted a positive-definite block")
         hd = h.double()
         rec = l.double() @ l.double().transpose(-1, -2)
         target = hd + torch.diag_embed(e.double())
-        rel = float(torch.linalg.matrix_norm(rec - target).max() / torch.linalg.matrix_norm(hd).max())
-        check(rel <= 1e-5, f"K3 {name}: |L L^T - (h + diag e)| / |h| = {rel:.3g}")
+        # relative to |h|; a zero block has only its boosts to be relative to
+        scale = torch.linalg.matrix_norm(hd).max()
+        scale = scale if scale > 0 else torch.linalg.matrix_norm(target).max()
+        rel = float(torch.linalg.matrix_norm(rec - target).max() / scale)
+        # the boosts of an indefinite block can dwarf |h|: there the plain
+        # version's own reconstruction error is the floor, as for K4
+        rec_plain = pl.double() @ pl.double().transpose(-1, -2) - hd - torch.diag_embed(pe.double())
+        rel_plain = float(torch.linalg.matrix_norm(rec_plain).max() / scale)
+        bound = max(1e-5, 2.0 * rel_plain) if name.startswith("edge") and not pd else 1e-5
+        check(rel <= bound, f"K3 {name}: |L L^T - (h + diag e)| / |h| = {rel:.3g} "
+                            f"(plain {rel_plain:.3g})")
         el = float((l - pl).abs().max() / pl.abs().max())
         ee = float((e - pe).abs().max() / max(float(pe.abs().max()), 1e-30)) if bool((pe != 0).any()) else float(e.abs().max())
         check(el <= 1e-4, f"K3 {name}: L differs from plain by {el:.3g} relative")
         check(ee <= 1e-4, f"K3 {name}: e differs from plain by {ee:.3g} relative")
+        lp, ep = cuda_chol.mod_chol(h, gmw=False)
+        _sync(device)
+        check(bool((ep == 0).all()), f"K3 {name}: gmw=False returned a boost")
         if pd:
-            lp, ep = cuda_chol.mod_chol(h, gmw=False)
-            _sync(device)
-            check(bool((ep == 0).all()) and bool(torch.isfinite(lp).all()),
-                  f"K3 {name}: plain Cholesky mode failed on a PD block")
+            check(bool(torch.isfinite(lp).all()), f"K3 {name}: plain Cholesky mode failed on a PD block")
             dp = float((lp - l).abs().max() / l.abs().max())
             check(dp <= 1e-5, f"K3 {name}: gmw=False differs on a PD block by {dp:.3g}")
+        else:
+            ref = cuda_chol.mod_chol_plain(h, gmw=False)[0]
+            check(bool(ref.isnan().any()), f"K3 {name}: plain Cholesky of a non-PD block has no NaN")
+            # at a pivot of exactly 0 the kernel stores sqrt(0) = 0 on the
+            # diagonal where the plain version divides 0 by it (NaN); the
+            # column below is NaN in both
+            same = (lp.isnan() == ref.isnan()) | (ref.isnan() & (lp == 0) & torch.eye(
+                h.shape[-1], dtype=torch.bool, device=device))
+            check(bool(same.all()),
+                  f"K3 {name}: gmw=False puts its NaNs elsewhere than the plain version")
+            fin = ~ref.isnan()
+            dn = float((lp[fin] - ref[fin]).abs().max() / ref[fin].abs().max().clamp(min=1e-30)) if fin.any() else 0.0
+            check(dn <= 1e-4, f"K3 {name}: gmw=False differs from plain before the NaNs by {dn:.3g}")
         err = max(err, float((l - pl).abs().max()), float((e - pe).abs().max()))
-        factors.append((name, l))
-        log(f"  K3 mod_chol {name}: recon {rel:.2e}, L vs plain {el:.2e}, e vs plain {ee:.2e}")
+        factors.append((name, h, l, e, pl, pe))
+        log(f"  K3 mod_chol {name}, route {cuda_chol.route(h.shape[-1])}: recon {rel:.2e}, "
+            f"L vs plain {el:.2e}, e vs plain {ee:.2e}")
     return err, factors
 
 
@@ -582,16 +641,39 @@ def _residual(l, x, b):
     return float((l @ (l.transpose(-1, -2) @ xm) - bm).norm() / bm.norm())
 
 
+def _system_residual(a, x, b):
+    """|A x - b| / |b| in float64."""
+    xm = x if x.ndim == 3 else x[..., None]
+    bm = b if b.ndim == 3 else b[..., None]
+    return float((a @ xm - bm).norm() / bm.norm())
+
+
 def check_solve(device, rng, factors, log):
+    """K4 on K3's factors, and the fused kernel on the same blocks and
+    right-hand sides.  K4: residual |L L^T x - b| / |b| within 1e-5 (on
+    ill-conditioned factors twice the plain version's), x within 1e-3
+    relative of plain.  Fused: L, e and x bit-equal to K3's and K4's (the
+    same arithmetic in one launch), which holds it to `mod_chol_plain` then
+    `chol_solve_plain` at K3's and K4's tolerances, and x within 1e-3
+    relative of plain-then-plain's or, on ill-conditioned blocks, its
+    residual on h + diag e within twice plain-then-plain's;
+    ``want_l=False`` the same e and x.  Returns the largest abs errors (K4, fused)."""
+    import numpy as np
     import torch
     from trajopt_tpu_torch.ops import cuda_chol
+    from trajopt_tpu_torch.testing import EDGE_SEED, chol_edge_rhs
 
-    err = 0.0
-    for name, l in factors:
+    err = err_fused = 0.0
+    edge_rng = np.random.default_rng(EDGE_SEED + 5)
+    for name, h, l, e, pl, pe in factors:
         b, m = l.shape[0], l.shape[-1]
-        rhs_shapes = [(b, m), (b, m, 2)] if m == 33 else [(b, m)]
-        for shape in rhs_shapes:
-            rhs = torch.as_tensor(rng.normal(size=shape), dtype=torch.float32, device=device)
+        if name.startswith("edge"):      # all four layouts, from their own generator
+            sides = chol_edge_rhs(edge_rng, h)
+        else:                            # the call sites' layouts
+            sides = [rng.normal(size=shape)
+                     for shape in ([(b, m), (b, m, 2)] if m == 33 else [(b, m)])]
+        for side in sides:
+            rhs, shape = torch.as_tensor(side, dtype=torch.float32, device=device), side.shape
             x = cuda_chol.chol_solve(l, rhs)
             _sync(device)
             px = cuda_chol.chol_solve_plain(l, rhs)
@@ -605,9 +687,30 @@ def check_solve(device, rng, factors, log):
             check(res <= bound, f"K4 {name} rhs {shape}: residual {res:.3g} (plain {res_plain:.3g})")
             check(dx <= 1e-3, f"K4 {name} rhs {shape}: x differs from plain by {dx:.3g} relative")
             err = max(err, float((x - px).abs().max()))
+
+            lf, ef, xf = cuda_chol.factor_solve(h, rhs)
+            none, ef2, xf2 = cuda_chol.factor_solve(h, rhs, want_l=False)
+            _sync(device)
+            check(torch.equal(lf, l) and torch.equal(ef, e) and torch.equal(xf, x),
+                  f"fused {name} rhs {shape}: differs from K3 then K4")
+            check(none is None and torch.equal(ef2, e) and torch.equal(xf2, x),
+                  f"fused {name} rhs {shape}: want_l=False changes e or x")
+            fx = cuda_chol.chol_solve_plain(pl, rhs)       # plain then plain
+            dfx = float((xf - fx).abs().max() / fx.abs().max())
+            # each x solves its own float32 factorization of h + diag e, so
+            # on an ill-conditioned block the two part by eps x cond; both
+            # are then held to the system itself, in float64
+            system = h.double() + torch.diag_embed(pe.double())
+            res_f, res_fp = (_system_residual(system, v.double(), rhs.double()) for v in (xf, fx))
+            check(dfx <= 1e-3 or res_f <= max(1e-5, 2.0 * res_fp),
+                  f"fused {name} rhs {shape}: x differs from plain by {dfx:.3g} relative, "
+                  f"residual {res_f:.3g} (plain {res_fp:.3g})")
+            err_fused = max(err_fused, float((lf - pl).abs().max()), float((ef - pe).abs().max()),
+                            float((xf - fx).abs().max()))
             log(f"  K4 chol_solve L {name} rhs {list(shape)}: residual {res:.2e} "
-                f"(plain {res_plain:.2e}), x vs plain {dx:.2e}")
-    return err
+                f"(plain {res_plain:.2e}), x vs plain {dx:.2e}; fused: bit-equal to K3 then K4, "
+                f"x vs plain-then-plain {dfx:.2e}")
+    return err, err_fused
 
 
 def check_kernels(device, log, seed=0, pair_diffs=None):
@@ -619,11 +722,22 @@ def check_kernels(device, log, seed=0, pair_diffs=None):
     if pair_diffs is None:
         pair_diffs = fleet_pair_diffs(device)
     rng = np.random.default_rng(seed)
-    errs = {"smallest_k": check_topk(device, rng, log),
-            "gjk_exact": check_gjk(device, rng, pair_diffs, log),
-            "gjk_fw": check_fw(device, rng, pair_diffs, log)}
+    t = [time.perf_counter()]
+
+    def lap(what):
+        t.append(time.perf_counter())
+        log(f"  ({what}: {t[-1] - t[-2]:.1f} s)")
+
+    errs = {"smallest_k": check_topk(device, rng, log)}
+    lap("K1 checks")
+    errs["gjk_exact"] = check_gjk(device, rng, pair_diffs, log)
+    lap("K2 checks")
+    errs["gjk_fw"] = check_fw(device, rng, pair_diffs, log)
+    lap("K5 checks")
     errs["mod_chol"], factors = check_chol(device, rng, log)
-    errs["chol_solve"] = check_solve(device, rng, factors, log)
+    lap("K3 checks")
+    errs["chol_solve"], errs["factor_solve"] = check_solve(device, rng, factors, log)
+    lap("K4 and fused checks")
     return errs
 
 
@@ -878,8 +992,8 @@ def fleet_phase(device, log):
         log(f"  u{FLEET} {mode}: iters {row['iters']} (C++ {reference_row(mode, uavs=FLEET)['iters']}), "
             f"gnorm {row['gnorm']:.4g}, median {row['median_iter_ms']:.2f} ms/iter, "
             f"solve {row['solve_s']:.2f} s, launches {launches[f'u{FLEET} {mode}']}")
-        log(f"    K1/K2 launches by call shape: {by_shape[f'u{FLEET} {mode}']}")
-        for name in ("smallest_k", "gjk_exact", "mod_chol", "chol_solve"):
+        log(f"    launches by call shape: {by_shape[f'u{FLEET} {mode}']}")
+        for name in SOLVE_KERNELS:
             check(launches[f"u{FLEET} {mode}"][name] > 0,
                   f"u{FLEET} {mode}: kernel {name} was never launched by the solve")
         check_parity(f"u{FLEET} {mode}", row, reference_row(mode, uavs=FLEET), log)
@@ -1046,6 +1160,145 @@ def shape_timings(topk, gjk, plain_of=()):
     return rows
 
 
+def chol_callsite_inputs(device):
+    """(blocks h, right-hand sides b or None) at every call-site shape of
+    K3, K4 and the fused kernel in the single P=4 and the 64-robot solves:
+    the PSD repair's [4,19,19] and [64,4,19,19], the slack Newton step's
+    [4,19,19] with b [4,19] and [256,19,19] with b [256,19], the KKT's
+    [33,33] and [64,33,33] with b [.,33,2] (factor and solve) and b [.,33]
+    (refinement).  Positive-definite blocks, made from a seed."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(3)
+    f32 = dict(dtype=torch.float32, device=device)
+
+    def spd(*shape):
+        a = rng.normal(size=shape)
+        return torch.as_tensor(a @ np.swapaxes(a, -1, -2) + shape[-1] * np.eye(shape[-1]), **f32)
+
+    def vec(*shape):
+        return torch.as_tensor(rng.normal(size=shape), **f32)
+
+    h4, h256, k1, k64 = spd(4, 19, 19), spd(256, 19, 19), spd(33, 33), spd(FLEET, 33, 33)
+    return [(h4, None), (spd(FLEET, 4, 19, 19), None), (h4, vec(4, 19)), (h256, vec(256, 19)),
+            (k1, vec(33, 2)), (k64, vec(FLEET, 33, 2)), (k1, vec(33)), (k64, vec(FLEET, 33))]
+
+
+def _digest(*tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def latency_floor(device):
+    """Device ms (`device_ms`) of an empty kernel and of one dependent step
+    shaped like K3's (warp max, division, square root, division, shuffle,
+    multiply-add) and like K4's (division, shuffle, multiply-add), from the
+    one-warp probe of ``csrc/chol.cu`` at 0 and at 4096 steps.  A
+    latency-bound factorization of an m x m block cannot take less than
+    empty + m K3 steps, a solve less than empty + 2m K4 steps."""
+    import torch
+    from trajopt_tpu_torch.ops import cuda_chol
+
+    out = torch.zeros(64, dtype=torch.float32, device=device)
+    steps = 4096
+    floor = {"empty_ms": device_ms(lambda: cuda_chol.latency_probe(out, 0, 3))}
+    for kind in (3, 4):
+        long = device_ms(lambda: cuda_chol.latency_probe(out, steps, kind))
+        floor[f"k{kind}_step_ms"] = (long - floor["empty_ms"]) / steps
+    return floor
+
+
+def chol_shape_timings(inputs, floor=None, library=True):
+    """K3, K4 and (where the port has it) the fused kernel at every case of
+    `chol_callsite_inputs`: ms per call (`time_ms`, best of two), device ms
+    (`device_ms`), busy ms (the kernel's own time under torch.profiler,
+    `device_busy_share`), the library call's ms per call beside K3
+    (`torch.linalg.cholesky_ex`) and K4 (`torch.cholesky_solve`; MAGMA, not
+    capturable), the bound, the latency floor (`latency_floor`) and a digest
+    of the outputs, by which two checkouts' kernels are compared bit for
+    bit.  Only `mod_chol(h)`, `chol_solve(l, b)` and `factor_solve(h, b)` are
+    called, so ``--time-shapes`` runs it on another checkout's port."""
+    import torch
+    from trajopt_tpu_torch.ops import cuda_chol
+
+    def dims(t):
+        return "[" + ",".join(map(str, t.shape)) + "]"
+
+    def row(kernel, case, m, kern, lib, nbytes, flops, steps3, steps4, out):
+        bound, by = bound_ms(nbytes, flops)
+        r = dict(kernel=kernel, case=case, m=m, ms=min(time_ms(kern), time_ms(kern)),
+                 device_ms=device_ms(kern), library_ms=None, bound_ms=bound, bound_by=by,
+                 digest=_digest(*out))
+        if library:
+            r["busy_ms"] = device_busy_share(kern, 20)[0] / 20
+            if lib is not None:
+                r["library_ms"] = min(time_ms(lib), time_ms(lib))
+        if floor is not None:
+            r["floor_ms"] = (floor["empty_ms"] + steps3 * floor["k3_step_ms"]
+                             + steps4 * floor["k4_step_ms"])
+        return r
+
+    rows, factored = [], set()
+    for h, b in inputs:
+        m = h.shape[-1]
+        n = h.numel() // (m * m)
+        flops3 = n * (2 * m ** 3 / 3 + 2 * m ** 2)
+        l, e = cuda_chol.mod_chol(h)
+        if id(h) not in factored:
+            factored.add(id(h))
+            rows.append(row("mod_chol", dims(h), m, lambda h=h: cuda_chol.mod_chol(h),
+                            lambda h=h: torch.linalg.cholesky_ex(h),
+                            2 * h.numel() * 4 + n * m * 4, flops3, m, 0, (l, e)))
+        if b is None:
+            continue
+        k = 1 if b.ndim == h.ndim - 1 else b.shape[-1]
+        bm = b[..., None] if b.ndim == h.ndim - 1 else b
+        flops4 = n * k * 2 * m ** 2
+        case = f"{dims(h)} b={dims(b)}"
+        x = cuda_chol.chol_solve(l, b)
+        rows.append(row("chol_solve", case, m, lambda l=l, b=b: cuda_chol.chol_solve(l, b),
+                        lambda l=l, bm=bm: torch.cholesky_solve(bm, l),
+                        l.numel() * 4 + 2 * b.numel() * 4, flops4, 0, 2 * m, (x,)))
+        if hasattr(cuda_chol, "factor_solve"):
+            rows.append(row("factor_solve", case, m,
+                            lambda h=h, b=b: cuda_chol.factor_solve(h, b), None,
+                            2 * h.numel() * 4 + n * m * 4 + 2 * b.numel() * 4, flops3 + flops4,
+                            m, 2 * m, cuda_chol.factor_solve(h, b)))
+    return rows
+
+
+def large_kkt_timings(device):
+    """What the P >= 8 reduced KKT (ns > 64, here ns = 141 of P = 16) pays
+    per call outside the kernels: `kkt._factor_block_tridiag` (a loop of
+    `cholesky_ex`, `solve_triangular` and matmuls over 18 x 18 blocks) and
+    the `torch.cholesky_solve` of `kkt._factor_solve` with two right-hand
+    sides, for one system and for 64.  ms per call between CUDA events."""
+    import numpy as np
+    import torch
+    from trajopt_tpu_torch.ops import kkt
+
+    rng = np.random.default_rng(4)
+    ns, out = 141, {}
+    band = np.abs(np.arange(ns)[:, None] - np.arange(ns)[None, :]) < 18
+    for n in (1, FLEET):
+        a = rng.normal(size=(n, ns, ns))
+        a = (a @ a.transpose(0, 2, 1)) * band + 4 * ns * np.eye(ns)
+        a = torch.as_tensor(a, dtype=torch.float32, device=device)
+        b = torch.as_tensor(rng.normal(size=(n, ns, 2)), dtype=torch.float32, device=device)
+        l = kkt._factor_block_tridiag(a)
+        check(bool(torch.isfinite(l).all()), "block-tridiagonal factor of a PD system is not finite")
+        factor = lambda a=a: kkt._factor_block_tridiag(a)
+        solve = lambda l=l, b=b: kkt._factor_solve(l, b)
+        out[f"[{n},{ns},{ns}]"] = dict(factor_ms=min(time_ms(factor, 20), time_ms(factor, 20)),
+                                       solve_ms=min(time_ms(solve, 20), time_ms(solve, 20)))
+    return out
+
+
 def kernel_timings(device, pair_diffs, rows):
     """Per kernel at one 64-robot slice shape.  ms: per call between CUDA
     events (`time_ms`; kernel, plain, plain, kernel, each one's best).
@@ -1100,9 +1353,14 @@ def kernel_timings(device, pair_diffs, rows):
                        lambda: cuda_chol.chol_solve_plain(l33, rhs),
                        lambda: torch.cholesky_solve(rhs, l33),
                        bound_ms(l33.numel() * 4 + 2 * rhs.numel() * 4, FLEET * 2 * 2 * 33 ** 2)),
+        # no one PyTorch call factors with the GMW pivot rule and solves
+        "factor_solve": ("h [64,33,33], b [64,33,2]", lambda: cuda_chol.factor_solve(kkt, rhs),
+                         lambda: cuda_chol.factor_solve_plain(kkt, rhs), None,
+                         bound_ms(2 * kkt.numel() * 4 + FLEET * 33 * 4 + 2 * rhs.numel() * 4,
+                                  FLEET * (2 * 33 ** 3 / 3 + 2 * 33 ** 2 + 2 * 2 * 33 ** 2))),
     }
     for name, (shape, kern, plain, library, (bound, bound_by)) in cases.items():
-        reps_plain = 5 if name == "gjk_fw" else 50
+        reps_plain = 50 if name in ("mod_chol", "chol_solve") else 5
         k1 = time_ms(kern)
         p1 = time_ms(plain, reps_plain)
         p2 = time_ms(plain, reps_plain)
@@ -1118,7 +1376,8 @@ def kernel_timings(device, pair_diffs, rows):
 
 
 def time_other_port(port, out_path):
-    """``--time-shapes``: `shape_timings` of the port in checkout ``port``
+    """``--time-shapes``: `shape_timings` and `chol_shape_timings` (with
+    the digests of K3's and K4's outputs) of the port in checkout ``port``
     on this checkout's inputs, written as one JSON object to ``out_path``
     (stdout if None), after `check_gjk_paths` on its K2 (logged to stderr).
     The inputs are made with this checkout's package, which is then
@@ -1131,6 +1390,7 @@ def time_other_port(port, out_path):
     pair_diffs = fleet_pair_diffs(device)
     rng = np.random.default_rng(2)
     topk, gjk = topk_cases(device, rng), gjk_cases(device, rng, pair_diffs)
+    chol = chol_callsite_inputs(device)
     for mod in [m for m in sys.modules if m.split(".")[0] == "trajopt_tpu_torch"]:
         del sys.modules[mod]
     sys.path.insert(0, os.path.abspath(port))
@@ -1142,7 +1402,8 @@ def time_other_port(port, out_path):
             check_gjk_paths(name, u, iters, cuda_gjk.gjk_exact(u, iters), cuda_gjk.gjk_exact_plain(u, iters),
                             u.abs().amax(dim=(1, 2)), lambda line: print(line, file=sys.stderr, flush=True))
     text = json.dumps({"package": os.path.dirname(trajopt_tpu_torch.__file__),
-                       "card": nvidia_smi_line(), "rows": shape_timings(topk, gjk)})
+                       "card": nvidia_smi_line(),
+                       "rows": shape_timings(topk, gjk) + chol_shape_timings(chol, library=False)})
     if out_path is None:
         print(text)
     else:
@@ -1151,7 +1412,7 @@ def time_other_port(port, out_path):
     return 0
 
 
-def shape_counts(names=("smallest_k", "gjk_exact")):
+def shape_counts(names=SOLVE_KERNELS):
     """{kernel: {call shape: launches}} since the last reset of the counts."""
     from trajopt_tpu_torch.ops import _cuda
 
@@ -1169,8 +1430,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="On-card smoke test of trajopt_tpu_torch.")
     ap.add_argument("--time-shapes", metavar="DIR",
-                    help="only time the K1 and K2 of the checkout DIR at every phase-2 case "
-                         "(this checkout's inputs) and print them as JSON")
+                    help="only time the K1, K2, K3 and K4 of the checkout DIR at every timed "
+                         "shape (this checkout's inputs) and print them as JSON")
     ap.add_argument("--out", metavar="FILE", help="with --time-shapes: write the JSON to FILE")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -1227,8 +1488,12 @@ def main() -> int:
             f"ccd_time {row['ccd_time']:.4f}, ccd_len {row['ccd_len']:.4f}, "
             f"min clearance {row['min_clearance']:.4f}, median {row['median_iter_ms']:.2f} ms/iter, "
             f"solve {row['solve_s']:.2f} s, launches {launches[f'single p{pieces}']}")
-        log(f"    K1/K2 launches by call shape: {by_shape[f'single p{pieces}']}")
-        for name in ("smallest_k", "gjk_exact", "mod_chol", "chol_solve"):
+        log(f"    launches by call shape: {by_shape[f'single p{pieces}']}")
+        # past ns = 9P - 3 = 64 the reduced KKT leaves the kernels (block-
+        # tridiagonal factor, `torch.cholesky_solve`), and K4 alone serves
+        # only its refinement: that path has no launch of `chol_solve`
+        on_path = [k for k in SOLVE_KERNELS if k != "chol_solve" or 9 * pieces - 3 <= 64]
+        for name in on_path:
             check(launches[f"single p{pieces}"][name] > 0,
                   f"p{pieces}: kernel {name} was never launched by the solve")
         check_parity(f"p{pieces}", row, reference_row("single", pieces=pieces), log)
@@ -1253,7 +1518,7 @@ def main() -> int:
     log(f"== phase 5: kernel, plain, library and bound times ({smi}); ms per call between "
         "CUDA events, device ms from 50 launches in one CUDA graph")
     import numpy as np
-    from trajopt_tpu_torch.ops import cuda_topk
+    from trajopt_tpu_torch.ops import cuda_chol, cuda_topk
 
     rng = np.random.default_rng(2)
     rows = shape_timings(topk_cases(device, rng), gjk_cases(device, rng, pair_diffs),
@@ -1280,6 +1545,20 @@ def main() -> int:
         else:
             log(f"    K2 {r['case']}: kernel {r['ms']:.4f} / {r['device_ms']:.4f}, bound "
                 f"{r['bound_ms']:.5f} ({r['bound_by']}, {r['rounds']} support rounds)")
+    floor = latency_floor(device)
+    log(f"  latency probe (device ms): empty kernel {floor['empty_ms']:.5f}, one K3-like step "
+        f"{floor['k3_step_ms']:.6f}, one K4-like step {floor['k4_step_ms']:.6f}")
+    log("  K3, K4 and the fused kernel at every call-site shape (ms per call / device ms, busy ms "
+        "under torch.profiler; library ms per call; bound; latency floor = empty + m K3 steps + 2m K4 steps):")
+    chol_rows = chol_shape_timings(chol_callsite_inputs(device), floor)
+    for r in chol_rows:
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        log(f"    {r['kernel']} {r['case']}, route {cuda_chol.route(r['m'])}: kernel {r['ms']:.4f} / "
+            f"{r['device_ms']:.4f} (busy {r['busy_ms']:.4f}), library {lib}, bound {r['bound_ms']:.5f} ({r['bound_by']}), "
+            f"floor {r['floor_ms']:.5f} ({r['device_ms'] / r['floor_ms']:.2f}x), digest {r['digest']}")
+    for shape, tm in large_kkt_timings(device).items():
+        log(f"  P=16 KKT {shape} outside the kernels, ms per call: block-tridiagonal factor "
+            f"{tm['factor_ms']:.4f}, cholesky_solve with 2 right-hand sides {tm['solve_ms']:.4f}")
     phase_done(5)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -1297,8 +1576,12 @@ def main() -> int:
             **{key: tm[key] for key in ("busy_ms", "library_busy_ms") if key in tm},
             "launches_by_path": {p: c[name] for p, c in launches.items()},
         })
-        if name in ("smallest_k", "gjk_exact"):
+        if name in SOLVE_KERNELS:
             kernels[-1]["launches_by_shape"] = {p: c[name] for p, c in by_shape.items()}
+        shapes = [r for r in chol_rows if r["kernel"] == name]
+        if shapes:
+            kernels[-1]["by_call_shape"] = shapes
+            kernels[-1]["latency_floor"] = floor
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

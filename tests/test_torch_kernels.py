@@ -3,7 +3,9 @@
 On the CPU each kernel wrapper of `trajopt_tpu_torch` takes its plain torch
 version, so these tests pin the plain versions to the JAX functions the
 kernels replace, in float64 (tests/conftest.py enables x64): `lax.top_k`
-for K1, `geometry.origin_simplex_dist` for K2, `ops/smallchol.py` for K3/K4.
+for K1, `geometry.origin_simplex_dist` for K2, `ops/smallchol.py` for K3/K4
+and their fused launch (and, in float32, the Pallas kernels themselves in
+interpret mode).
 The kernels themselves are compared with the plain versions on the card
 (`test_kernels_match_plain_on_card`, and chip_smoke.py).
 """
@@ -222,6 +224,128 @@ def test_mod_cholesky_and_solve_match_smallchol():
     assert not e.any()
 
 
+# the edge blocks on which chip_smoke.py holds K3, K4 and the fused kernel to
+# their plain versions on the card: here the plain versions are pinned to the
+# JAX package's `smallchol` on the same blocks (the batch of 4097 cut to 5:
+# its point is the kernel's grid, which the CPU does not have)
+_CHOL_EDGES = [(name, h[:5], kind) for name, h, kind in kernel_cases.chol_edge_blocks(
+    np.random.default_rng(kernel_cases.EDGE_SEED + 4))]
+
+
+@pytest.mark.parametrize("name,h,kind", _CHOL_EDGES, ids=[c[0] for c in _CHOL_EDGES])
+def test_chol_edge_blocks_match_smallchol(name, h, kind):
+    """m = 1 to 64 on each side of the kernels' tiers, zero, diagonal,
+    negative definite and scaled blocks, through `mod_chol`, `chol_solve`
+    and `factor_solve` on the CPU in float64 against `smallchol` at rtol
+    1e-10, with every right-hand-side layout; ``want_l=False`` gives the
+    same e (and x); ``gmw=False`` matches `smallchol.cholesky`, NaNs
+    included on a block that is not positive definite."""
+    ht = torch.as_tensor(h, **F64)
+    # jitted: op by op, JAX would compile every step's shapes on their own
+    jl, je = jax.jit(jsc.mod_cholesky)(jnp.asarray(h))
+    l, e = cuda_chol.mod_chol(ht)
+    tiny = 1e-12 * max(np.abs(h).max(), 1e-30)
+    np.testing.assert_allclose(l.numpy(), np.asarray(jl), rtol=1e-10, atol=tiny)
+    np.testing.assert_allclose(e.numpy(), np.asarray(je), rtol=1e-10, atol=tiny)
+    none, e_only = cuda_chol.mod_chol(ht, want_l=False)
+    assert none is None
+    np.testing.assert_array_equal(e_only.numpy(), e.numpy())
+    if kind == "pd":
+        assert not e.any()
+    lp, ep = cuda_chol.mod_chol(ht, gmw=False)
+    assert not ep.any()
+    np.testing.assert_allclose(lp.numpy(), np.asarray(jax.jit(jsc.cholesky)(jnp.asarray(h))), rtol=1e-10,
+                               atol=tiny)
+    assert bool(lp.isnan().any()) == (kind != "pd")
+    rhs = kernel_cases.chol_edge_rhs(np.random.default_rng(kernel_cases.EDGE_SEED + 5), h)
+    # one JAX solve of all the columns (they are independent), cut up again
+    cols = [b.reshape(b.shape[0], b.shape[1], -1) for b in rhs]
+    jx_all = np.asarray(jax.jit(jsc.cho_solve)(jl, jnp.asarray(np.concatenate(cols, axis=-1))))
+    stops = np.cumsum([c.shape[-1] for c in cols])
+    for b, stop in zip(rhs, stops):
+        jx = jx_all[..., stop - b[0].size // b.shape[1]:stop].reshape(b.shape)
+        bt = torch.as_tensor(b, **F64)
+        x = cuda_chol.chol_solve(l, bt)
+        np.testing.assert_allclose(x.numpy(), jx, rtol=1e-10, atol=1e-12 * np.abs(jx).max())
+        lf, ef, xf = cuda_chol.factor_solve(ht, bt)
+        np.testing.assert_array_equal(lf.numpy(), l.numpy())
+        np.testing.assert_array_equal(ef.numpy(), e.numpy())
+        np.testing.assert_array_equal(xf.numpy(), x.numpy())
+        none, ef, xf = cuda_chol.factor_solve(ht, bt, want_l=False)
+        assert none is None
+        np.testing.assert_array_equal(ef.numpy(), e.numpy())
+        np.testing.assert_array_equal(xf.numpy(), x.numpy())
+
+
+@pytest.mark.parametrize(
+    "m,want",
+    [(0, (1, 8)), (1, (1, 8)), (8, (1, 8)), (9, (1, 16)), (15, (1, 16)), (19, (1, 20)),
+     (20, (1, 20)), (21, (1, 24)), (24, (1, 24)), (31, (1, 32)), (32, (1, 32)), (33, (2, 36)),
+     (36, (2, 36)), (42, (2, 44)), (51, (2, 52)), (60, (2, 64)), (63, (2, 64)), (64, (2, 64))],
+)
+def test_chol_route_by_size(m, want):
+    """(rows a lane, padded width) is a pure function of m; the width is
+    the smallest built one that holds the block."""
+    assert cuda_chol.route(m) == want
+    assert want[1] >= m and want[0] == (1 if m <= 32 else 2)
+
+
+@pytest.mark.parametrize("m", [65, 141, -1])
+def test_chol_kernels_refuse_blocks_past_64(m):
+    with pytest.raises(ValueError, match="m <= 64"):
+        cuda_chol.route(m)
+
+
+def test_chol_edge_blocks_reach_every_tier():
+    tiers = {cuda_chol.route(h.shape[-1]) for _, h, _ in _CHOL_EDGES}
+    assert tiers >= {(1, 8), (1, 16), (1, 20), (1, 24), (1, 32), (2, 36), (2, 44), (2, 64)}
+
+
+@pytest.mark.parametrize("shape", [(5, 19, 19), (2, 33, 33)], ids=["5x19x19", "2x33x33"])
+@pytest.mark.parametrize("kind", ["pd", "indefinite"])
+def test_chol_plain_matches_pallas_kernels(interpret_mode, shape, kind):
+    """The port's plain K3 and K4 against the TPU kernels themselves
+    (`pallas_chol.mod_chol`, `chol_solve`; Pallas interpret mode, float32).
+    Both run the same GMW recurrence in float32, so L and e agree to a few
+    float32 roundings amplified by the recurrence: 2e-5 of the largest
+    entry.  In the solve the TPU kernel multiplies by the reciprocal of the
+    diagonal where the port divides, one more rounding a step: x is held to
+    2e-5 relative on the positive-definite blocks and, on the indefinite
+    ones (where the GMW-boosted factor can be ill-conditioned), to the
+    residual |L L^T x - b| <= 1e-4 |b| of each solution on its own factor."""
+    from trajopt_tpu.ops import pallas_chol
+
+    rng = np.random.default_rng(sum(shape) + len(kind))
+    a = rng.normal(size=shape)
+    h = a @ a.transpose(0, 2, 1) + shape[-1] * np.eye(shape[-1]) if kind == "pd" \
+        else a + a.transpose(0, 2, 1)
+    h = h.astype(np.float32)
+    rhs = rng.normal(size=shape[:2] + (2,)).astype(np.float32)
+    pl_l, pl_e = pallas_chol.mod_chol(jnp.asarray(h))
+    l, e = cuda_chol.mod_chol(torch.as_tensor(h))
+    np.testing.assert_allclose(l.numpy(), np.asarray(pl_l), rtol=0, atol=2e-5 * np.abs(l.numpy()).max())
+    np.testing.assert_allclose(e.numpy(), np.asarray(pl_e), rtol=0,
+                               atol=2e-5 * max(np.abs(e.numpy()).max(), np.abs(h).max()))
+    if kind == "pd":
+        assert not e.any() and not np.asarray(pl_e).any()
+        pl_lp, pl_ep = pallas_chol.mod_chol(jnp.asarray(h), gmw=False)
+        lp, _ = cuda_chol.mod_chol(torch.as_tensor(h), gmw=False)
+        np.testing.assert_allclose(lp.numpy(), np.asarray(pl_lp), rtol=0,
+                                   atol=2e-5 * np.abs(lp.numpy()).max())
+        assert not np.asarray(pl_ep).any()
+    for b in (rhs, rhs[..., 0]):
+        pl_x = np.asarray(pallas_chol.chol_solve(pl_l, jnp.asarray(b)))
+        x = cuda_chol.chol_solve(l, torch.as_tensor(b)).numpy()
+        assert pl_x.shape == x.shape
+        if kind == "pd":
+            np.testing.assert_allclose(x, pl_x, rtol=0, atol=2e-5 * np.abs(x).max())
+        for sol, fac in ((x, l.numpy()), (pl_x, np.asarray(pl_l))):
+            sol2, b2 = (sol, b) if b.ndim == 3 else (sol[..., None], b[..., None])
+            fac = fac.astype(np.float64)
+            res = fac @ (fac.transpose(0, 2, 1) @ sol2.astype(np.float64)) - b2
+            assert np.linalg.norm(res) <= 1e-4 * np.linalg.norm(b2)
+
+
 @pytest.mark.parametrize(
     "call",
     [
@@ -229,8 +353,9 @@ def test_mod_cholesky_and_solve_match_smallchol():
         lambda x: cuda_gjk.gjk_exact(x[:48].reshape(8, 2, 3), 16),
         lambda x: cuda_chol.mod_chol(x[:48].reshape(3, 4, 4)),
         lambda x: cuda_chol.chol_solve(x[:16].reshape(1, 4, 4), x[:4].reshape(1, 4)),
+        lambda x: cuda_chol.factor_solve(x[:48].reshape(3, 4, 4), x[48:60].reshape(3, 4)),
     ],
-    ids=["smallest_k", "gjk_exact", "mod_chol", "chol_solve"],
+    ids=["smallest_k", "gjk_exact", "mod_chol", "chol_solve", "factor_solve"],
 )
 def test_off_cpu_tensors_never_take_the_plain_path(call):
     """A tensor that is not on the CPU goes to the kernel route, which takes

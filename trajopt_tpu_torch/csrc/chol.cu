@@ -1,5 +1,6 @@
 // K3: batched GMW81 modified Cholesky (or plain Cholesky) of m x m blocks.
 // K4: batched forward + backward substitution for L L^T x = b.
+// Fused: K3 then K4 in one launch, the factor never leaving the registers.
 //
 // K3 replaces trajopt_tpu/ops/pallas_chol.py::_chol_kernel and K4 its
 // _solve_kernel (blocks on the 128 TPU lanes, the m-step recurrence
@@ -7,129 +8,596 @@
 // (mod_cholesky, cholesky, cho_solve).
 //
 // Bound on the card: latency.  The solver's blocks are 19 x 19 (a few per
-// robot) and the reduced KKT is at most 64 x 64, so a factorization is m
-// dependent column steps of a few hundred flops each, and there are few
-// blocks.  Design: one warp per block (m <= 64, so <= 16 KB of shared
-// memory), the matrix in shared memory, each column step a warp-wide max
-// (GMW pivot rule) plus a right-looking update of the lower trailing
-// triangle; warp-synchronous, so no block barriers.  K4 runs one warp per
-// (matrix, right-hand side) with column-oriented substitution.
+// robot) and the reduced KKT is at most 64 x 64, in batches of 1 to a few
+// hundred, so a call moves a few hundred KB at most and a factorization is
+// m dependent column steps (pivot, square root, division, update), a solve
+// 2m (division, update).  Neither bytes nor flops matter; what the design
+// shortens is the dependent chain of one step and the number of launches.
+// `wgmma` and TMA have nothing to do here: the tensor cores want 64-row
+// tiles of a product with no dependence between its steps, while every
+// column step here waits for the last one's square root and division, in
+// float32, on a block smaller than one tile; and TMA's descriptor and
+// barrier round trip costs more than the 1.4 KB (19 x 19) to 16 KB
+// (64 x 64) block it would fetch, which one coalesced pass of a warp
+// brings in.
+//
+// Design: one warp per factorization, up to four warps (blocks of the batch,
+// or right-hand sides of one block) per CUDA block. K3: lane i holds row i
+// of the trailing matrix in registers (two rows a lane, i and i + 32, for 32
+// < m <= 64), both triangles kept up to date, so that the pivot column is
+// one register of every lane. The row is a sliding window: going into step
+// j, register t holds entry (i, j + t), and the update writes each entry one
+// register to the left. Every step therefore runs the same instructions on
+// the same registers, and the m steps are a rolled loop whose body (one
+// shuffle and one fused multiply-add per register of the padded width COLS,
+// a template parameter that `cuda_chol.route` picks from m) stays in the
+// instruction cache. (Unrolling the m steps over fixed registers instead was
+// built and measured: each instruction then runs once, and at m = 33 it was
+// slower than the first design, as a warp waiting on instruction fetch would
+// be; it also took over seven minutes to compile. Two more variants were
+// measured without a gain: deferring a step's trailing update so that it
+// overlaps the next step's chain, and, for two rows a lane, broadcasting c
+// through shared memory, 3% slower at m = 33 and 8% faster at m = 60.)
+//
+// A column step is: the pivot by one shuffle from lane j, the GMW theta by
+// one warp reduction (`__reduce_max_sync` on the bit patterns of |a_ij| >=
+// 0), IEEE sqrtf and one IEEE division a lane, the scaled column c broadcast
+// by shuffles, and the multiply-adds: no shared memory and no barrier on the
+// chain. The update keeps the right-looking order a[i][k] -= c_i c_k of the
+// first design, so the factor is bit-equal to it.
+//
+// Two divisions leave the chain where they can: the GMW quotient
+// theta^2 / beta2 is only formed when it can exceed the pivot's floor
+// (a warp-uniform test with a factor 2 of margin, so the result is the
+// same bit for bit), and a zero numerator, which sends the hardware's IEEE
+// division to its slow path, multiplies instead (`divide`, whose division
+// is an instruction of its own: left to the compiler, the test for zero
+// became a branch around the division, and the reciprocal of the divisor
+// then started only after the numerator had arrived).  From step j on only
+// m - j registers of the window are live, so the later steps run the same
+// loop at half and at a quarter of the width (a gain of 10-15% from m = 24
+// up, none at m = 19).
+//
+// K4: the matrix is loaded once into the staged shared copy and each of
+// its right-hand sides gets a warp of its own (up to four; warp w takes
+// columns w, w + 4, ...), each lane holding its entry of b in a register.
+// L stays in shared memory: the loads of a step (L_jj, and L_ij or L_ji
+// for the lane's row) do not depend on b, and the chain is one shuffle
+// (b_j from lane j), one IEEE division and one multiply-add a step.
+// Forward substitution is column-oriented (b_i -= L_ij y_j), and so is the
+// backward one (b_i -= L_ji x_j, the lanes reading row j of L), so neither
+// needs a transposed copy or a warp sum.  The fused kernel has the same
+// warps: they copy the block together, warp 0 runs K3's steps, which leave
+// L in the staged block, and after a barrier every warp substitutes its
+// right-hand side: one launch, and L never goes through device memory in
+// between.
+//
+// Device memory is touched once each way and coalesced: a block is copied
+// into shared memory by asynchronous copies, all in flight at once (row
+// stride m | 1, so that neither row nor column accesses meet bank
+// conflicts), each lane takes its row from there by unconditional loads (the
+// mirrored lower triangle: like the plain version, the recurrence reads
+// only the lower triangle; the GMW scan reads every entry), and L goes
+// back from the same buffer, zeros in the upper triangle included, or is
+// not written at all when the caller wants only e (the PSD repair) or only
+// x (the slack Newton step).  The staging is sized by m (1.4 KB a warp at
+// m = 19, 16.3 KB at m = 64).
+//
+// The last kernel here is a latency probe: one warp running `steps`
+// dependent steps shaped like K3's or K4's (0 steps: an empty kernel), by
+// which chip_smoke.py measures the floor a latency-bound design can reach.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
+constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kMaxM = 64;
+constexpr int kWarps = 4;            // matrices per CUDA block, at most
+constexpr int kSharedCap = 48 * 1024;
+constexpr float kEps = 1.19e-7f;
 
-__device__ __forceinline__ float warp_max(float v) {
-    for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xFFFFFFFFu, v, off));
-    return v;
+// max over the warp of v >= 0: non-negative floats order as their bits
+__device__ __forceinline__ float warp_max_nonneg(float v) {
+    return __uint_as_float(__reduce_max_sync(kFull, __float_as_uint(v)));
 }
 
-__global__ void mod_chol_kernel(const float* __restrict__ h, float* __restrict__ lout,
-                                float* __restrict__ eout, int m, int gmw, float nf) {
-    __shared__ float a[kMaxM * kMaxM];
-    __shared__ float col[kMaxM];
-    const int lane = threadIdx.x;
-    const size_t base = static_cast<size_t>(blockIdx.x) * m * m;
-    const float* hb = h + base;
-    float* lb = lout + base;
-    float* eb = eout + static_cast<size_t>(blockIdx.x) * m;
-    for (int t = lane; t < m * m; t += 32) {
-        a[t] = hb[t];
-        lb[t] = 0.f;
-    }
-    __syncwarp();
+__host__ __device__ constexpr int stage_floats(int m) {
+    return (m * (m | 1) + 3) & ~3;
+}
 
-    const float eps = 1.19e-7f;
-    float beta2 = 0.f, delta = 0.f;
-    if (gmw) {
-        float gam = 0.f, off = 0.f;
-        for (int t = lane; t < m * m; t += 32) {
-            const float v = fabsf(a[t]);
-            if (t / m == t % m) gam = fmaxf(gam, v);
-            else off = fmaxf(off, v);
+// IEEE a / b.  A zero numerator sends the hardware's division to its slow
+// path (about 0.1 us, more than a whole column step), and the blocks here
+// are full of structural zeros (banded KKT systems, identity rows of pinned
+// coordinates, zero right-hand sides, the padding); 0 / b = 0 * b bit for
+// bit for a finite non-zero b, so that case takes a multiplication.
+__device__ __forceinline__ float divide(float a, float b) {
+    const bool zero = a == 0.f && b != 0.f && fabsf(b) < INFINITY;
+    const float num = zero ? 1.f : a;
+    float q;
+#ifdef __CUDA_ARCH__
+    // as an instruction of its own, so that the compiler keeps it out of a
+    // branch on ``zero`` and can start the reciprocal of b before a arrives
+    asm volatile("div.rn.f32 %0, %1, %2;" : "=f"(q) : "f"(num), "f"(b));
+#else
+    q = num / b;
+#endif
+    return zero ? a * b : q;
+}
+
+// Coalesced copy between a contiguous m x m block in device memory and its
+// staged copy with row stride ld, by ``threads`` threads of which this one is
+// ``tid``: coming in, asynchronous copies with one wait for all of them;
+// going out, kBatch shared loads ahead of their stores.  The row of flat
+// index t is
+// (t * ceil(2^18 / m)) >> 18, exact for t < m * m with m <= 64, so the loop
+// has no division.
+constexpr int kBatch = 8;
+
+template <bool TO_SHARED>
+__device__ __forceinline__ void copy_block(float* g, float* s, int m, int ld, int tid,
+                                           int threads) {
+    const unsigned recip = ((1u << 18) + m - 1) / m;
+    const int n = m * m;
+    if (TO_SHARED) {
+        // asynchronous copies: all in flight at once, one wait for the lot
+        for (int t = tid; t < n; t += threads) {
+            const int r = static_cast<int>((static_cast<unsigned>(t) * recip) >> 18);
+            __pipeline_memcpy_async(s + r * ld + (t - r * m), g + t, sizeof(float));
         }
-        gam = warp_max(gam);
-        off = warp_max(off);
-        beta2 = fmaxf(fmaxf(gam, off / nf), eps);
-        delta = eps * fmaxf(gam + off, 1.f);
+        __pipeline_commit();
+        __pipeline_wait_prior(0);
+        return;
     }
+    for (int t0 = tid; t0 < n; t0 += threads * kBatch) {
+        float v[kBatch];
+        int at[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+            const int t = t0 + threads * u;
+            const int r = static_cast<int>((static_cast<unsigned>(t) * recip) >> 18);
+            at[u] = r * ld + (t - r * m);
+            if (t < n) v[u] = TO_SHARED ? g[t] : s[at[u]];
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+            const int t = t0 + threads * u;
+            if (t < n) {
+                if (TO_SHARED) s[at[u]] = v[u];
+                else g[t] = v[u];
+            }
+        }
+    }
+}
 
-    for (int j = 0; j < m; ++j) {
-        const float dorig = a[j * m + j];
+// Lane's rows from the staged block: a[r][k] = block[max(row,k)][min(row,k)],
+// zeros in the padding.  With SCAN, also this lane's share of the GMW scan
+// over the raw block: gam = max |diagonal|, off = max |off-diagonal|.
+template <int COLS, int NR, bool SCAN>
+__device__ __forceinline__ void take_rows(const float* s, int m, int ld, int lane,
+                                          float (&a)[NR][COLS], float& gam, float& off) {
+    // every load is unconditional (padding reads entry (0, 0) and is masked
+    // after), so that they all go out together
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+        const int row = lane + 32 * r;
+        const bool valid = row < m;
+        const int rc = valid ? row : 0;
+#pragma unroll
+        for (int k = 0; k < COLS; ++k) {
+            const int kc = k < m ? k : 0;
+            const bool real = valid && k < m;
+            const float raw = s[rc * ld + kc];
+            const float mirrored = s[kc * ld + rc];
+            a[r][k] = real ? (k <= row ? raw : mirrored) : 0.f;
+            if (SCAN) {
+                const float mag = real ? fabsf(raw) : 0.f;
+                gam = fmaxf(gam, k == row ? mag : 0.f);
+                off = fmaxf(off, k == row ? 0.f : mag);
+            }
+        }
+    }
+}
+
+// The m column steps, as a rolled loop over a sliding window: going into
+// step j, a[r][t] is entry (row, j + t) of the trailing matrix, so the
+// pivot column is always register 0 and the update writes each entry one
+// register to the left.  Column j of L (zeros above the diagonal included)
+// goes to the staged block when there is one; e[r] is the boost of the
+// lane's row.  Steps j_begin .. j_end - 1, updating W registers of the
+// window (those past W hold no live column by then).
+constexpr int kGroup = 8;   // shuffles started together ahead of their multiply-adds
+
+template <int COLS, int NR, int W>
+__device__ __forceinline__ void factor_steps(float (&a)[NR][COLS], float (&e)[NR], float* block,
+                                             int m, int ld, int lane, bool gmw, float beta2,
+                                             float delta, int j_begin, int j_end) {
+    for (int j = j_begin; j < j_end && j < m; ++j) {
+        float head = a[0][0];
+        if (NR == 2 && j >= 32) head = a[1][0];
+        const float dorig = __shfl_sync(kFull, head, j);
         float dnew = dorig;
         if (gmw) {
             float theta = 0.f;
-            for (int i = j + 1 + lane; i < m; i += 32) theta = fmaxf(theta, fabsf(a[i * m + j]));
-            theta = warp_max(theta);
-            dnew = fmaxf(fmaxf(fabsf(dorig), theta * theta / beta2), delta);
+#pragma unroll
+            for (int r = 0; r < NR; ++r)
+                theta = fmaxf(theta, lane + 32 * r > j ? fabsf(a[r][0]) : 0.f);
+            theta = warp_max_nonneg(theta);
+            // max(|d|, theta^2 / beta2, delta), with the division taken off
+            // the chain where it cannot win: theta^2 <= beta2 floor / 2
+            // leaves the quotient below the floor whatever the rounding
+            const float floor = fmaxf(fabsf(dorig), delta);
+            const float t2 = theta * theta;
+            dnew = t2 > 0.5f * beta2 * floor ? fmaxf(floor, t2 / beta2) : floor;
         }
         const float piv = sqrtf(dnew);   // plain Cholesky: NaN on a non-PD pivot
-        if (lane == 0) {
-            eb[j] = gmw ? dnew - dorig : 0.f;
-            lb[j * m + j] = piv;
+        float c[NR];
+#pragma unroll
+        for (int r = 0; r < NR; ++r) {
+            const int row = lane + 32 * r;
+            const bool below = row > j && row < m;
+            const float q = divide(a[r][0], piv);
+            c[r] = below ? q : 0.f;
+            if (row == j) e[r] = gmw ? dnew - dorig : 0.f;
+            if (block != nullptr && row < m)
+                block[row * ld + j] = row > j ? c[r] : (row == j ? piv : 0.f);
         }
-        for (int i = j + 1 + lane; i < m; i += 32) {
-            const float c = a[i * m + j] / piv;
-            col[i] = c;
-            lb[i * m + j] = c;
+        // a[i][k] -= c_i c_k, shifted one register left; rows <= j have c = 0
+#pragma unroll
+        for (int t0 = 1; t0 < W; t0 += kGroup) {
+            float ck[kGroup];
+#pragma unroll
+            for (int u = 0; u < kGroup; ++u) {
+                if (t0 + u >= W) continue;
+                // columns k >= m are padding: whatever lane k mod 32 holds
+                // lands in registers that no real column ever reads
+                const int k = j + t0 + u;
+                float from = c[0];
+                if (NR == 2 && k >= 32) from = c[1];
+                ck[u] = __shfl_sync(kFull, from, k);
+            }
+#pragma unroll
+            for (int u = 0; u < kGroup; ++u) {
+                const int t = t0 + u;
+                if (t < W) {
+#pragma unroll
+                    for (int r = 0; r < NR; ++r) a[r][t - 1] = fmaf(-c[r], ck[u], a[r][t]);
+                }
+            }
         }
-        __syncwarp();
-        // lower trailing triangle: a[i][k] -= col[i] col[k], j < k <= i
-        const int r = m - j - 1;
-        for (int t = lane; t < r * r; t += 32) {
-            const int i = j + 1 + t / r, k = j + 1 + t % r;
-            if (k <= i) a[i * m + k] -= col[i] * col[k];
-        }
-        __syncwarp();
+#pragma unroll
+        for (int r = 0; r < NR; ++r) a[r][W - 1] = 0.f;
     }
 }
 
-__global__ void chol_solve_kernel(const float* __restrict__ l, const float* __restrict__ rhs,
-                                  float* __restrict__ x, int m, int nrhs) {
-    __shared__ float lm[kMaxM * kMaxM];
-    __shared__ float r[kMaxM];
-    const int lane = threadIdx.x;
-    const int b = blockIdx.x, c = blockIdx.y;
-    const float* lbk = l + static_cast<size_t>(b) * m * m;
-    for (int t = lane; t < m * m; t += 32) lm[t] = lbk[t];
-    for (int i = lane; i < m; i += 32) r[i] = rhs[(static_cast<size_t>(b) * m + i) * nrhs + c];
+// All m steps.  From step j on only m - j <= COLS - j registers of the
+// window are live, so the later steps run the same loop at half and at a
+// quarter of the width.
+template <int COLS, int NR>
+__device__ __forceinline__ void factor(float (&a)[NR][COLS], float (&e)[NR], float* block, int m,
+                                       int ld, int lane, bool gmw, float beta2, float delta) {
+    constexpr int HALF = (COLS + 1) / 2, QUARTER = (COLS + 3) / 4;
+    factor_steps<COLS, NR, COLS>(a, e, block, m, ld, lane, gmw, beta2, delta, 0, COLS - HALF);
+    factor_steps<COLS, NR, HALF>(a, e, block, m, ld, lane, gmw, beta2, delta, COLS - HALF,
+                                 COLS - QUARTER);
+    factor_steps<COLS, NR, QUARTER>(a, e, block, m, ld, lane, gmw, beta2, delta, COLS - QUARTER,
+                                    COLS);
+}
+
+// Forward then backward substitution of one right-hand side, L read from
+// the staged block (its loads do not depend on b, so they run ahead of the
+// chain); b[r] is the lane's entry going in and of the solution coming out.
+// A step: b_j by a shuffle from lane j, one division, one multiply-add.
+template <int NR>
+__device__ __forceinline__ void substitute(const float* block, float (&b)[NR], int m, int ld,
+                                           int lane) {
+#pragma unroll 4
+    for (int j = 0; j < m; ++j) {                // L y = b
+        const float d = block[j * ld + j];
+        float lij[NR];
+#pragma unroll
+        for (int r = 0; r < NR; ++r) {
+            const int row = lane + 32 * r;
+            lij[r] = (row > j && row < m) ? block[row * ld + j] : 0.f;
+        }
+        float from = b[0];
+        if (NR == 2 && j >= 32) from = b[1];
+        const float y = divide(__shfl_sync(kFull, from, j), d);
+#pragma unroll
+        for (int r = 0; r < NR; ++r) {
+            const int row = lane + 32 * r;
+            if (row > j) b[r] = fmaf(-lij[r], y, b[r]);
+            else if (row == j) b[r] = y;
+        }
+    }
+#pragma unroll 4
+    for (int j = m - 1; j >= 0; --j) {           // L^T x = y
+        const float d = block[j * ld + j];
+        float lji[NR];
+#pragma unroll
+        for (int r = 0; r < NR; ++r) {
+            const int row = lane + 32 * r;
+            lji[r] = row < j ? block[j * ld + row] : 0.f;
+        }
+        float from = b[0];
+        if (NR == 2 && j >= 32) from = b[1];
+        const float x = divide(__shfl_sync(kFull, from, j), d);
+#pragma unroll
+        for (int r = 0; r < NR; ++r) {
+            const int row = lane + 32 * r;
+            if (row < j) b[r] = fmaf(-lji[r], x, b[r]);
+            else if (row == j) b[r] = x;
+        }
+    }
+}
+
+// The lane's entries of column col of rhs [m, nrhs] (zeros past the end).
+template <int NR>
+__device__ __forceinline__ void load_rhs(const float* __restrict__ rhs, float (&b)[NR], int m,
+                                         int nrhs, int col, int lane) {
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+        const int row = lane + 32 * r;
+        b[r] = (row < m && col < nrhs) ? rhs[row * nrhs + col] : 0.f;
+    }
+}
+
+// Columns col, col + stride, ... of rhs through `substitute`.  ``first``
+// holds column col, loaded by the caller before it waited for the block, so
+// that the two latencies overlap.
+template <int NR>
+__device__ __forceinline__ void solve_columns(const float* block, const float* __restrict__ rhs,
+                                              float (&first)[NR], float* __restrict__ x, int m,
+                                              int ld, int nrhs, int col, int stride, int lane) {
+    for (; col < nrhs; col += stride) {
+        substitute<NR>(block, first, m, ld, lane);
+#pragma unroll
+        for (int r = 0; r < NR; ++r)
+            if (lane + 32 * r < m) x[(lane + 32 * r) * nrhs + col] = first[r];
+        load_rhs<NR>(rhs, first, m, nrhs, col + stride, lane);
+    }
+}
+
+// Scan and factor the staged block (one warp); shared by K3 and the fused
+// kernel.  With ``keep`` the staged block holds L afterwards.
+template <int COLS, int NR>
+__device__ __forceinline__ void factor_staged(float* block, float (&e)[NR], int m, int ld,
+                                              int lane, int gmw, float nf, bool keep) {
+    float a[NR][COLS];
+    float gam = 0.f, off = 0.f, beta2 = 0.f, delta = 0.f;
+    if (gmw) {
+        take_rows<COLS, NR, true>(block, m, ld, lane, a, gam, off);
+        gam = warp_max_nonneg(gam);
+        off = warp_max_nonneg(off);
+        beta2 = fmaxf(fmaxf(gam, off / nf), kEps);
+        delta = kEps * fmaxf(gam + off, 1.f);
+    } else {
+        take_rows<COLS, NR, false>(block, m, ld, lane, a, gam, off);
+    }
+    __syncwarp();   // every lane has its rows before L overwrites the block
+#pragma unroll
+    for (int r = 0; r < NR; ++r) e[r] = 0.f;
+    factor<COLS, NR>(a, e, keep ? block : nullptr, m, ld, lane, gmw != 0, beta2, delta);
+}
+
+template <int NR>
+__device__ __forceinline__ void write_boosts(float* __restrict__ eout, const float (&e)[NR], int m,
+                                             int lane) {
+#pragma unroll
+    for (int r = 0; r < NR; ++r)
+        if (lane + 32 * r < m) eout[lane + 32 * r] = e[r];
+}
+
+// K3: one warp per matrix, blockDim.x / 32 matrices per CUDA block.
+template <int COLS, int NR>
+__global__ void __launch_bounds__(32 * kWarps)
+mod_chol_kernel(const float* __restrict__ h, float* __restrict__ lout, float* __restrict__ eout,
+                int batch, int m, int gmw, float nf) {
+    extern __shared__ __align__(16) float shared_floats[];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int mat = blockIdx.x * (blockDim.x >> 5) + warp;
+    if (mat >= batch) return;
+    const int ld = m | 1;
+    float* block = shared_floats + warp * stage_floats(m);
+    const size_t base = static_cast<size_t>(mat) * m * m;
+    copy_block<true>(const_cast<float*>(h) + base, block, m, ld, lane, 32);
     __syncwarp();
-    for (int i = 0; i < m; ++i) {              // L y = b
-        const float yi = r[i] / lm[i * m + i];
+    float e[NR];
+    factor_staged<COLS, NR>(block, e, m, ld, lane, gmw, nf, lout != nullptr);
+    write_boosts<NR>(eout + static_cast<size_t>(mat) * m, e, m, lane);
+    if (lout != nullptr) {
         __syncwarp();
-        if (lane == 0) r[i] = yi;
-        for (int t = i + 1 + lane; t < m; t += 32) r[t] -= lm[t * m + i] * yi;
-        __syncwarp();
+        copy_block<false>(lout + base, block, m, ld, lane, 32);
     }
-    for (int i = m - 1; i >= 0; --i) {         // L^T x = y
-        const float xi = r[i] / lm[i * m + i];
-        __syncwarp();
-        if (lane == 0) r[i] = xi;
-        for (int t = lane; t < i; t += 32) r[t] -= lm[i * m + t] * xi;
-        __syncwarp();
+}
+
+// K4 and the fused kernel: ``wpm`` warps per matrix, one right-hand side
+// each at a time (warp w takes columns w, w + wpm, ...; two right-hand sides
+// interleaved in one warp were measured at 1.75x the time of one: each IEEE
+// division ends in a branch to its slow path, which keeps the compiler from
+// overlapping two of them), blockDim.x / (32 wpm) matrices per CUDA block.  The warps of
+// a matrix copy it together; block-wide barriers order the copy, the
+// factorization (warp 0 of the matrix) and the substitutions, so no warp
+// leaves before the last barrier.
+struct Place {
+    int mat, w, lane, tid, threads;
+    float* block;
+    bool active;
+};
+
+// Orders the warps of a matrix: alone, a warp only needs its own lanes.
+__device__ __forceinline__ void matrix_barrier(int wpm) {
+    if (wpm == 1) __syncwarp();
+    else __syncthreads();
+}
+
+__device__ __forceinline__ Place place(float* shared_floats, int batch, int m, int wpm) {
+    const int warp = threadIdx.x >> 5;
+    const int local = warp / wpm;
+    Place p;
+    p.mat = blockIdx.x * ((blockDim.x >> 5) / wpm) + local;
+    p.w = warp - local * wpm;
+    p.lane = threadIdx.x & 31;
+    p.tid = p.w * 32 + p.lane;
+    p.threads = 32 * wpm;
+    p.block = shared_floats + local * stage_floats(m);
+    p.active = p.mat < batch;
+    return p;
+}
+
+template <int NR>
+__global__ void __launch_bounds__(32 * kWarps)
+chol_solve_kernel(const float* __restrict__ l, const float* __restrict__ rhs,
+                  float* __restrict__ x, int batch, int m, int nrhs, int wpm) {
+    extern __shared__ __align__(16) float shared_floats[];
+    const Place p = place(shared_floats, batch, m, wpm);
+    const int ld = m | 1;
+    const size_t vec = static_cast<size_t>(p.mat) * m * nrhs;
+    float first[NR];
+    if (p.active) {
+        load_rhs<NR>(rhs + vec, first, m, nrhs, p.w, p.lane);
+        copy_block<true>(const_cast<float*>(l) + static_cast<size_t>(p.mat) * m * m, p.block, m,
+                         ld, p.tid, p.threads);
     }
-    for (int i = lane; i < m; i += 32) x[(static_cast<size_t>(b) * m + i) * nrhs + c] = r[i];
+    matrix_barrier(wpm);
+    if (p.active)
+        solve_columns<NR>(p.block, rhs + vec, first, x + vec, m, ld, nrhs, p.w, wpm, p.lane);
+}
+
+template <int COLS, int NR>
+__global__ void __launch_bounds__(32 * kWarps)
+factor_solve_kernel(const float* __restrict__ h, const float* __restrict__ rhs,
+                    float* __restrict__ lout, float* __restrict__ eout, float* __restrict__ x,
+                    int batch, int m, int nrhs, int wpm, int gmw, float nf) {
+    extern __shared__ __align__(16) float shared_floats[];
+    const Place p = place(shared_floats, batch, m, wpm);
+    const int ld = m | 1;
+    const size_t base = static_cast<size_t>(p.mat) * m * m;
+    const size_t vec = static_cast<size_t>(p.mat) * m * nrhs;
+    float first[NR];
+    if (p.active) {
+        load_rhs<NR>(rhs + vec, first, m, nrhs, p.w, p.lane);
+        copy_block<true>(const_cast<float*>(h) + base, p.block, m, ld, p.tid, p.threads);
+    }
+    matrix_barrier(wpm);
+    if (p.active && p.w == 0) {
+        float e[NR];
+        factor_staged<COLS, NR>(p.block, e, m, ld, p.lane, gmw, nf, true);
+        write_boosts<NR>(eout + static_cast<size_t>(p.mat) * m, e, m, p.lane);
+    }
+    matrix_barrier(wpm);
+    if (p.active) {
+        solve_columns<NR>(p.block, rhs + vec, first, x + vec, m, ld, nrhs, p.w, wpm, p.lane);
+        if (lout != nullptr) copy_block<false>(lout + base, p.block, m, ld, p.tid, p.threads);
+    }
+}
+
+// One warp, `steps` dependent steps: kind 3 a K3 column step (warp max,
+// division, square root, division, shuffle, multiply-add), kind 4 a K4
+// substitution step (division, shuffle, multiply-add).
+__global__ void chol_probe_kernel(float* out, int steps, int kind) {
+    float x = 1.f + 1e-3f * threadIdx.x;
+    const float d = 1.0001f + out[32];
+    for (int s = 0; s < steps; ++s) {
+        float c;
+        if (kind == 3) {
+            const float theta = warp_max_nonneg(fabsf(x));
+            const float piv = sqrtf(fmaxf(theta * theta / d, 1e-3f));
+            c = x / piv;
+        } else {
+            c = x / d;
+        }
+        const float y = __shfl_sync(kFull, c, s & 31);
+        x = fmaf(-0.5f * c, y, 1.5f);
+    }
+    out[threadIdx.x] = x;
+}
+
+struct Launch {
+    dim3 grid, block;
+    size_t shared;
+    int wpm;
+};
+
+// ``wpm`` warps per matrix (one per right-hand side, at most kWarps) and as
+// many matrices per CUDA block as fit kWarps warps and the shared memory.
+Launch launch_shape(int batch, int m, int nrhs) {
+    const int wpm = nrhs < kWarps ? nrhs : kWarps;
+    const size_t per_matrix = stage_floats(m) * sizeof(float);
+    int mats = static_cast<int>(kSharedCap / per_matrix);
+    mats = mats > kWarps / wpm ? kWarps / wpm : mats;
+    return {dim3((batch + mats - 1) / mats), dim3(32 * wpm * mats), mats * per_matrix, wpm};
 }
 
 }  // namespace
 
-extern "C" int trajopt_mod_chol(const float* h, float* l, float* e, int batch, int m,
+// The tier (padded width) comes from the caller (`cuda_chol.route`); a
+// width that is not built is refused.
+#define TRAJOPT_TIERS(CALL)                                      \
+    switch (cols) {                                              \
+        case 8: CALL(8, 1); break;                               \
+        case 16: CALL(16, 1); break;                             \
+        case 20: CALL(20, 1); break;                             \
+        case 24: CALL(24, 1); break;                             \
+        case 32: CALL(32, 1); break;                             \
+        case 36: CALL(36, 2); break;                             \
+        case 44: CALL(44, 2); break;                             \
+        case 52: CALL(52, 2); break;                             \
+        case 64: CALL(64, 2); break;                             \
+        default: return static_cast<int>(cudaErrorInvalidValue); \
+    }
+
+extern "C" int trajopt_mod_chol(const float* h, float* l, float* e, int batch, int m, int cols,
                                 int gmw, float nf, void* stream) {
-    if (m > kMaxM) return static_cast<int>(cudaErrorInvalidValue);
-    if (batch > 0 && m > 0)
-        mod_chol_kernel<<<batch, 32, 0, static_cast<cudaStream_t>(stream)>>>(h, l, e, m, gmw, nf);
+    if (m > kMaxM || m > cols) return static_cast<int>(cudaErrorInvalidValue);
+    if (batch > 0 && m > 0) {
+        const Launch at = launch_shape(batch, m, 1);
+        cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define CALL(COLS, NR) \
+    mod_chol_kernel<COLS, NR><<<at.grid, at.block, at.shared, st>>>(h, l, e, batch, m, gmw, nf)
+        TRAJOPT_TIERS(CALL)
+#undef CALL
+    }
     return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int trajopt_chol_solve(const float* l, const float* rhs, float* x, int batch,
-                                  int m, int nrhs, void* stream) {
+extern "C" int trajopt_chol_solve(const float* l, const float* rhs, float* x, int batch, int m,
+                                  int nrhs, void* stream) {
     if (m > kMaxM) return static_cast<int>(cudaErrorInvalidValue);
     if (batch > 0 && m > 0 && nrhs > 0) {
-        dim3 grid(batch, nrhs);
-        chol_solve_kernel<<<grid, 32, 0, static_cast<cudaStream_t>(stream)>>>(l, rhs, x, m, nrhs);
+        const Launch at = launch_shape(batch, m, nrhs);
+        cudaStream_t st = static_cast<cudaStream_t>(stream);
+        if (m <= 32)
+            chol_solve_kernel<1><<<at.grid, at.block, at.shared, st>>>(l, rhs, x, batch, m, nrhs,
+                                                                   at.wpm);
+        else
+            chol_solve_kernel<2><<<at.grid, at.block, at.shared, st>>>(l, rhs, x, batch, m, nrhs,
+                                                                   at.wpm);
     }
+    return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int trajopt_factor_solve(const float* h, const float* rhs, float* l, float* e, float* x,
+                                    int batch, int m, int cols, int nrhs, int gmw, float nf,
+                                    void* stream) {
+    if (m > kMaxM || m > cols) return static_cast<int>(cudaErrorInvalidValue);
+    if (batch > 0 && m > 0 && nrhs > 0) {
+        const Launch at = launch_shape(batch, m, nrhs);
+        cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define CALL(COLS, NR)                                                      \
+    factor_solve_kernel<COLS, NR><<<at.grid, at.block, at.shared, st>>>(    \
+        h, rhs, l, e, x, batch, m, nrhs, at.wpm, gmw, nf)
+        TRAJOPT_TIERS(CALL)
+#undef CALL
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+// out: at least 33 floats, out[32] == 0 (read so that the divisor is not a
+// compile-time constant).
+extern "C" int trajopt_chol_probe(float* out, int steps, int kind, void* stream) {
+    chol_probe_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(out, steps, kind);
     return static_cast<int>(cudaGetLastError());
 }

@@ -36,7 +36,8 @@ FLAGS = (
 # Launch counts per kernel.  Each wrapper adds one where it launches its
 # kernel and nowhere else, so a run can prove its main path used them.
 # LAUNCH_SHAPES splits the same counts by (kernel, call shape key).
-LAUNCHES = {"smallest_k": 0, "gjk_exact": 0, "gjk_fw": 0, "mod_chol": 0, "chol_solve": 0}
+LAUNCHES = {"smallest_k": 0, "gjk_exact": 0, "gjk_fw": 0, "mod_chol": 0, "chol_solve": 0,
+            "factor_solve": 0}
 LAUNCH_SHAPES: collections.Counter = collections.Counter()
 
 _lib: ctypes.CDLL | None = None
@@ -49,8 +50,10 @@ _SIGNATURES = {
     "trajopt_smallest_k_rounds": [_vp, _vp, _vp, _int, _int, _int, _vp],
     "trajopt_gjk_exact": [_vp, _vp, _vp, _vp, _int, _int, _int, _vp],
     "trajopt_gjk_fw": [_vp, _vp, _vp, _vp, _int, _int, _int, _vp],
-    "trajopt_mod_chol": [_vp, _vp, _vp, _int, _int, _int, _float, _vp],
+    "trajopt_mod_chol": [_vp, _vp, _vp, _int, _int, _int, _int, _float, _vp],
     "trajopt_chol_solve": [_vp, _vp, _vp, _int, _int, _int, _vp],
+    "trajopt_factor_solve": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _float, _vp],
+    "trajopt_chol_probe": [_vp, _int, _int, _vp],
 }
 
 
@@ -128,11 +131,16 @@ def check_launch(err: int, name: str, shape: tuple = ()) -> None:
     synchronize would not report it); otherwise count the launch, also
     under ``shape``: (input shape, parameter name, value), formatted only
     when read (`shape_label`)."""
+    check_error(err, name)
+    LAUNCHES[name] += 1
+    LAUNCH_SHAPES[(name, shape)] += 1
+
+
+def check_error(err: int, name: str) -> None:
+    """Raise if the launch of ``name`` returned a CUDA error."""
     if err != 0:
         msg = lib().trajopt_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
-    LAUNCHES[name] += 1
-    LAUNCH_SHAPES[(name, shape)] += 1
 
 
 def require_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
@@ -148,10 +156,14 @@ def require_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
 
 def shape_label(shape: tuple) -> str:
     """The label of a shape key: (torch.Size([32, 4000]), "k", 64) reads
-    "[32,4000] k=64"."""
+    "[32,4000] k=64", and a value that is itself a shape reads as one:
+    (torch.Size([64, 33, 33]), "b", torch.Size([64, 33, 2])) is
+    "[64,33,33] b=[64,33,2]"."""
     if not shape:
         return ""
     dims, param, value = shape
+    if isinstance(value, tuple):
+        value = f"[{','.join(map(str, value))}]"
     return f"[{','.join(map(str, dims))}] {param}={value}"
 
 

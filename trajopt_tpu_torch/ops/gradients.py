@@ -266,7 +266,7 @@ def psd_repair_gmw(h: torch.Tensor) -> torch.Tensor:
     ``h + diag(e)`` with e >= 0, PD by construction, e == 0 on
     comfortably-PD blocks."""
     m = h.shape[-1]
-    _, e = cuda_chol.mod_chol(h.contiguous())
+    _, e = cuda_chol.mod_chol(h.contiguous(), want_l=False)
     return h + e[..., None] * torch.eye(m, dtype=h.dtype, device=h.device)
 
 

@@ -8,8 +8,9 @@ rows); one scalar time variable borders it:
     [b^T c] [dt] = -[gt]   =>   dt  = -(gt - b^T A^-1 gs) / s
                                 ds  = -A^-1 gs - dt * A^-1 b
 
-Systems with ns <= 64 factor with kernels K3/K4 (`ops/cuda_chol.py`);
-larger ones with the block-tridiagonal factorization below.
+Systems with ns <= 64 factor and solve in one fused K3 + K4 launch and
+refine with K4 (`ops/cuda_chol.py`); larger ones use the block-tridiagonal
+factorization below.
 """
 
 from __future__ import annotations
@@ -63,19 +64,21 @@ def _factor_block_tridiag(a: torch.Tensor) -> torch.Tensor:
     return full.reshape(batch + (nb * k, nb * k))[..., :ns, :ns]
 
 
-def _factor(a: torch.Tensor) -> torch.Tensor:
-    """Lower factor of PD(ish) blocks [..., ns, ns].  Small blocks go to the
-    modified Cholesky (K3), whose GMW boosts engage only if roundoff made a
-    block numerically indefinite (`correct_direction` then refines toward
-    the true system)."""
-    ns = a.shape[-1]
-    if ns <= _UNROLL_MAX:
-        return cuda_chol.mod_chol(a.contiguous())[0]
-    return _factor_block_tridiag(a)
+def _factor_and_solve(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(lower factor L of PD(ish) blocks a [..., ns, ns], solution of
+    L L^T x = b).  Small blocks go to the modified Cholesky and its solve in
+    one launch (`cuda_chol.factor_solve`); the GMW boosts engage only if
+    roundoff made a block numerically indefinite (`correct_direction` then
+    refines toward the true system)."""
+    if a.shape[-1] <= _UNROLL_MAX:
+        l, _, x = cuda_chol.factor_solve(a.contiguous(), b.contiguous())
+        return l, x
+    l = _factor_block_tridiag(a)
+    return l, _factor_solve(l, b)
 
 
 def _factor_solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve L L^T x = b given `_factor`'s output."""
+    """Solve L L^T x = b given `_factor_and_solve`'s factor."""
     ns = l.shape[-1]
     if ns <= _UNROLL_MAX:
         return cuda_chol.chol_solve(l.contiguous(), b.contiguous())
@@ -146,8 +149,7 @@ def local_solve(kkt: ReducedKKT) -> LocalSolve:
     ridge = 1e-6 * torch.diagonal(kkt.a, dim1=-2, dim2=-1).sum(-1) / ns
     a = kkt.a + ridge[..., None, None] * torch.eye(ns, dtype=kkt.a.dtype, device=kkt.a.device)
     rhs = torch.stack([kkt.gs, kkt.b], dim=-1)           # [..., ns, 2]
-    chol = _factor(a)
-    sol = _factor_solve(chol, rhs)
+    chol, sol = _factor_and_solve(a, rhs)
     ainv_gs, ainv_b = sol[..., 0], sol[..., 1]
     schur_s = kkt.htt - torch.einsum("...i,...i->...", kkt.b, ainv_b)
     schur_r = kkt.gt - torch.einsum("...i,...i->...", kkt.b, ainv_gs)

@@ -293,7 +293,7 @@ def slack_update(
     Returns (new_state, consensus_residual).
 
     The state may carry a leading robot axis U (the residual is then [U]):
-    the pieces of all robots form one batch (one K3 and one K4 launch).
+    the pieces of all robots form one batch (one fused K3 + K4 launch).
     A ladder stage is evaluated when any piece of any robot still lacks an
     accepted rung, where the reference's vmapped `lax.cond` selects per
     robot; the first accepted rung of every piece is the same either way."""
@@ -326,9 +326,8 @@ def slack_update(
     g = g * m
     eye = torch.eye(gr.N_LOC, dtype=h.dtype, device=h.device)
     h = torch.where((m[:, :, None] * m[:, None, :]) > 0, h, eye[None])
-    # fused repair + factor + solve (K3 then K4 on the card)
-    chol_l, _ = cuda_chol.mod_chol(h.contiguous())
-    d = -cuda_chol.chol_solve(chol_l, g.contiguous())
+    # repair + factor + solve in one launch on the card; the factor is not kept
+    d = -cuda_chol.factor_solve(h.contiguous(), g.contiguous(), want_l=False)[2]
     d = d * m
     wolfe = -torch.sum(d * g, dim=1)
     # NaN-proof steepest-descent fallback per piece

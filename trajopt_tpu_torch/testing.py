@@ -1,5 +1,6 @@
-"""Edge-case inputs and a float64 oracle for checking K1 (`smallest_k`) and
-K2 (`gjk_exact`) where their decisions are most fragile.
+"""Edge-case inputs and a float64 oracle for checking K1 (`smallest_k`), K2
+(`gjk_exact`) and K3/K4 (`mod_chol`, `chol_solve`, `factor_solve`) where
+their decisions and their routes are most fragile.
 
 ``chip_smoke.py`` holds the kernels to their plain versions on these inputs
 on the card; ``tests/test_torch_kernels.py`` pins the plain versions to the
@@ -86,6 +87,51 @@ def gjk_edge_sets(rng):
     dup = np.concatenate([base, base[:, ::-1], base], axis=1)          # j, 23 - j, j + 24 alike
     out.append(("edge duplicates [128,36,3]", dup, 16, 8))
     return out
+
+
+CHOL_EDGE_SIZES = (1, 2, 15, 24, 31, 32, 33, 42, 60, 63, 64)
+
+
+def chol_edge_blocks(rng):
+    """(name, h, kind) aimed at the routes of K3/K4 (`cuda_chol.route`),
+    float64 numpy, h [batch, m, m] symmetric: every size of
+    `CHOL_EDGE_SIZES` (each side of the one-row and two-row tiers and of
+    their padded widths) positive definite and indefinite, then 19 x 19
+    blocks that are zero, diagonal (mixed signs), negative definite, scaled
+    by 1e6 and by 1e-6, and batches of 1 and of 4097.  ``kind`` is "pd"
+    (GMW must not boost; a plain Cholesky exists) or "other"."""
+
+    def pd(b, m):
+        a = rng.normal(size=(b, m, m))
+        return a @ a.transpose(0, 2, 1) + m * np.eye(m)
+
+    def sym(b, m):
+        a = rng.normal(size=(b, m, m))
+        return a + a.transpose(0, 2, 1)
+
+    out = []
+    for m in CHOL_EDGE_SIZES:
+        out.append((f"edge PD [3,{m},{m}]", pd(3, m), "pd"))
+        out.append((f"edge indefinite [3,{m},{m}]", sym(3, m), "other"))
+    diag = np.zeros((2, 19, 19))
+    diag[:, np.arange(19), np.arange(19)] = rng.normal(size=(2, 19)) * 3.0
+    out += [
+        ("edge zero [2,19,19]", np.zeros((2, 19, 19)), "other"),
+        ("edge diagonal [2,19,19]", diag, "other"),
+        ("edge negative definite [2,19,19]", -pd(2, 19), "other"),
+        ("edge PD x 1e6 [2,19,19]", pd(2, 19) * 1e6, "pd"),
+        ("edge PD x 1e-6 [2,19,19]", pd(2, 19) * 1e-6, "pd"),
+        ("edge batch of 1 [1,19,19]", pd(1, 19), "pd"),
+        ("edge batch of 4097 [4097,19,19]", pd(4097, 19), "pd"),
+    ]
+    return out
+
+
+def chol_edge_rhs(rng, h):
+    """Right-hand sides for blocks h [batch, m, m] in the four layouts the
+    solve takes: [batch, m], [batch, m, 1], [batch, m, 2], [batch, m, 5]."""
+    b, m = h.shape[0], h.shape[-1]
+    return [rng.normal(size=shape) for shape in ((b, m), (b, m, 1), (b, m, 2), (b, m, 5))]
 
 
 def brute_origin_dist(u):
