@@ -10,9 +10,11 @@ Phases, each reported on its own lines with the seconds it took:
    CUDA versions, and the time to build the CUDA kernels from ``csrc/``;
 2. every kernel (K1-K5 and the fused K3 + K4 launch) against its plain
    torch version in float32, at the shapes the single-UAV and the 64-robot
-   solves give it plus edge cases (for K1 and K2 aimed at each route: ties,
-   signed zeros, NaN and +inf, k = 1 and k = n, m = 1 to 80, duplicate
-   vertices; for K3, K4 and the fused kernel: m = 1 to 64 on each side of
+   solves give it plus edge cases (for K1, K2 and K5 aimed at each route:
+   ties, signed zeros, NaN and +inf, k = 1 and k = n, m = 1 to 80 for K2
+   and 1 to 513 for K5 (its three tiers, 12-vertex hull pairs at m = 144),
+   duplicate vertices, the origin inside, coplanar sets, pairs at 1e3
+   scale; for K3, K4 and the fused kernel: m = 1 to 64 on each side of
    the tiers, zero, diagonal, negative definite and scaled blocks, batches
    of 1 and 4097, ``gmw=False`` on non-PD blocks, four right-hand-side
    layouts);
@@ -31,11 +33,13 @@ Phases, each reported on its own lines with the seconds it took:
    run and the C++ row;
 5. per-kernel times beside their plain versions, the least time the card
    could take for the same work, and the one PyTorch call that computes the
-   same function where there is one; then K1 (beside `torch.topk`) and K2
-   at every shape of phase 2, and K3, K4 and the fused kernel at every
-   call-site shape beside their latency floor (an empty kernel plus m or
-   2m dependent steps, measured by a one-warp probe); last, what the
-   P = 16 KKT (ns = 141) pays outside the kernels.  ``ms`` is per call
+   same function where there is one; then K1 (beside `torch.topk`), K2 and
+   K5 (with its route) at every shape of phase 2, K5 at the cross-check's
+   shape with 1, 2, 4 and 8 lanes a problem and at m = 6 to 64 and 16 to
+   64512 problems with each routed G (`fw_route_matrix`), and K3, K4 and
+   the fused kernel at every call-site shape beside their latency floor
+   (an empty kernel plus m or 2m dependent steps, measured by a one-warp
+   probe); last, what the P = 16 KKT (ns = 141) pays outside the kernels.  ``ms`` is per call
    between CUDA events (the host's cost of issuing a call included),
    ``device_ms`` from 50 launches in one CUDA graph.
 
@@ -46,8 +50,9 @@ JAX and nothing of the JAX package.
 
     python3 chip_smoke.py --time-shapes DIR [--out FILE]
 
-runs only phase 5's K1/K2 and K3/K4 shape timings of the checkout DIR's
-port on this checkout's inputs, with a digest of each Cholesky output (to
+runs only phase 5's K1/K2/K5 and K3/K4 shape timings of the checkout DIR's
+port on this checkout's inputs (a K5 that takes m <= 64 only reads
+"refused" at the larger shapes), with a digest of each Cholesky output (to
 compare two commits on one card, in time and bit for bit: parent, change,
 change, parent in one call).
 """
@@ -398,10 +403,16 @@ def check_gjk_paths(name, u, iters, hd, ref, scale, log):
 
 
 def fw_cases(device, rng, pair_diffs):
-    """(name, entry point call(iters), difference set u, iters) for K5 at
-    m = 6, 12 and 36, and at the pairwise-clearance cross-check's shape."""
+    """(name, entry point call(iters), difference set u, iters, brute rows)
+    for K5 at m = 6, 12 and 36, at the pairwise-clearance cross-check's
+    shape, then `testing.fw_edge_sets` (m = 1 to 513, every tier of
+    `cuda_gjk.fw_route`; own generator, so the other cases keep their
+    inputs).  ``brute rows``: how many leading problems `brute_origin_dist`
+    checks; 0 holds every problem to the float64 converged exact distance
+    instead."""
     import numpy as np
     from trajopt_tpu_torch.ops import cuda_gjk
+    from trajopt_tpu_torch.testing import EDGE_SEED, fw_edge_sets
 
     t = _f32(device)
     shift = np.array([0.5, 0.2, -0.1])
@@ -414,16 +425,18 @@ def fw_cases(device, rng, pair_diffs):
     coplanar = rng.normal(size=(128, 36, 3))
     coplanar[..., 2] = 0.4 * rng.choice([-1.0, 1.0], size=(128, 1))
     coplanar = t(coplanar)
-    cases = [(f"random {list(u.shape)}", u, 24 if m == 6 else 32) for m, u in rand.items()]
+    cases = [(f"random {list(u.shape)}", u, 24 if m == 6 else 32, None) for m, u in rand.items()]
     cases += [
-        ("separated pairs [128,6]x[128,6]", (a, b), 32),
-        ("points inside [128,12,3]", (verts, inside), 32),
-        ("coincident [128,12,3]", coincident, 32),
-        ("coplanar [128,36,3]", coplanar, 32),
-        (f"fleet pairs {list(pair_diffs.shape)} (64-robot start)", pair_diffs, 32),
+        ("separated pairs [128,6]x[128,6]", (a, b), 32, None),
+        ("points inside [128,12,3]", (verts, inside), 32, None),
+        ("coincident [128,12,3]", coincident, 32, None),
+        ("coplanar [128,36,3]", coplanar, 32, None),
+        (f"fleet pairs {list(pair_diffs.shape)} (64-robot start)", pair_diffs, 32, None),
     ]
+    cases += [(name, tuple(map(t, x)) if isinstance(x, tuple) else t(x), iters, n_brute)
+              for name, x, iters, n_brute in fw_edge_sets(np.random.default_rng(EDGE_SEED + 4))]
     out = []
-    for name, x, iters in cases:
+    for name, x, iters, n_brute in cases:
         if isinstance(x, tuple) and x[1].ndim == 3:
             call = lambda it, x=x: cuda_gjk.gjk_pairs(x[0], x[1], it)
             u = (x[0][:, :, None] - x[1][:, None]).reshape(x[0].shape[0], -1, 3).contiguous()
@@ -433,7 +446,9 @@ def fw_cases(device, rng, pair_diffs):
         else:
             call = lambda it, x=x: cuda_gjk.gjk_diffset(x, it)
             u = x
-        out.append((name, call, u, iters))
+        if n_brute is None:
+            n_brute = 32 if u.shape[1] <= 12 else 8
+        out.append((name, call, u, iters, n_brute))
     return out
 
 
@@ -470,20 +485,23 @@ def fw_tightness_faults(hd, ref, ref_half, scale, true, sep, tol=1e-5):
 def check_fw(device, rng, pair_diffs, log):
     """K5 against its plain version.  Frank-Wolfe with the away step meets
     exact ties by construction: after an exact line search on an edge, both
-    ends score u.v = |v|^2, and rounding (sums taken in another order) picks
-    the away vertex.  So kernel and plain agree to rounding for one round
-    only.  After the full rounds each case must meet: the brackets [lb, dist]
-    of kernel and plain intersect and contain the float64 brute-force
-    distance; the kernel's brackets are as tight as plain's
-    (`fw_tightness_faults`), and the kernel's own one-round output fails that
-    test (the control); and from ``iters - 1`` to ``iters`` rounds the
-    kernel's lb does not fall nor its dist rise beyond 1e-6 x scale."""
+    ends score u.v = |v|^2, and rounding (sums taken in another order, the
+    trial points in closed form) picks the away vertex.  So kernel and plain
+    agree to rounding for one round only.  After the full rounds each case
+    must meet: the brackets [lb, dist] of kernel and plain intersect and
+    contain the float64 brute-force distance (the float64 converged exact
+    distance where the case has no brute rows); the kernel's brackets are
+    as tight as plain's (`fw_tightness_faults`), and the kernel's own
+    one-round output fails that test (the control; with one vertex every
+    round returns that vertex, so there is nothing for it to tell); and
+    from ``iters - 1`` to ``iters`` rounds the kernel's lb does not fall nor
+    its dist rise beyond 1e-6 x scale."""
     import torch
     from trajopt_tpu_torch.ops import cuda_gjk
     from trajopt_tpu_torch.testing import brute_origin_dist
 
     err = 0.0
-    for name, call, u, iters in fw_cases(device, rng, pair_diffs):
+    for name, call, u, iters, n_brute in fw_cases(device, rng, pair_diffs):
         scale = u.abs().amax(dim=(1, 2))
         one = call(1)
         _sync(device)
@@ -499,8 +517,11 @@ def check_fw(device, rng, pair_diffs, log):
         gap = torch.maximum(hd.lb - ref.dist, ref.lb - hd.dist) / scale
         check(bool((gap <= 1e-5).all()),
               f"K5 {name}: kernel and plain brackets are {float(gap.max()):.3g} x scale apart")
-        n_brute = 32 if u.shape[1] <= 12 else 8
-        true = torch.as_tensor(brute_origin_dist(u[:n_brute].double().cpu().numpy()), device=device)
+        if n_brute:
+            true = torch.as_tensor(brute_origin_dist(u[:n_brute].double().cpu().numpy()), device=device)
+        else:
+            n_brute = u.shape[0]
+            true = cuda_gjk.gjk_exact_plain(u.double(), 64).dist
         sc = scale[:n_brute].double()
         over = float(((hd.lb[:n_brute].double() - true) / sc).max())
         under = float(((true - hd.dist[:n_brute].double()) / sc).max())
@@ -510,7 +531,8 @@ def check_fw(device, rng, pair_diffs, log):
         dscale = scale.double()
         faults = fw_tightness_faults(hd, ref, ref_half, dscale, true, sep)
         check(not faults, f"K5 {name}: brackets looser than plain's: {'; '.join(faults)}")
-        check(fw_tightness_faults(one, ref, ref_half, dscale, true, sep),
+        control = fw_tightness_faults(one, ref, ref_half, dscale, true, sep)
+        check(control or u.shape[1] == 1,
               f"K5 {name}: the tightness test does not tell one round from {iters}")
         lb_drop = float(((prev.lb - hd.lb) / scale).max())
         dist_rise = float(((hd.dist - prev.dist) / scale).max())
@@ -520,12 +542,14 @@ def check_fw(device, rng, pair_diffs, log):
                                for v in (kv, rv))
                  for (key, kv), rv in zip(fw_looseness(hd, dscale, true, sep).items(),
                                           fw_looseness(ref, dscale, true, sep).values())}
-        log(f"  K5 gjk_fw {name}: 1 round |kernel-plain|/scale {float(e1.max()):.2e}; "
+        log(f"  K5 gjk_fw {name}, route {cuda_gjk.fw_route(u.shape[1], u.shape[0])}: 1 round "
+            f"|kernel-plain|/scale {float(e1.max()):.2e}; "
             f"{iters} rounds: brackets apart {float(gap.max()):.2e} x scale, "
             f"median/max /scale kernel plain: {loose} "
             f"({int(sep.sum())} separated, true on {n_brute}), "
             f"max (lb-true)/scale {over:.2e}, max (true-dist)/scale {under:.2e}, "
-            f"last round lb drop {lb_drop:.1e}, dist rise {dist_rise:.1e}")
+            f"last round lb drop {lb_drop:.1e}, dist rise {dist_rise:.1e}; control: "
+            f"{control[0] if control else 'none at m = 1'}")
     return err
 
 
@@ -1122,14 +1146,67 @@ def bound_ms(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def shape_timings(topk, gjk, plain_of=()):
-    """K1 and K2 at every case of `topk_cases` and `gjk_cases` (call-site
-    shapes and edge cases): ms per call (`time_ms`; best of kernel, library,
-    library, kernel), ms from a CUDA graph (`device_ms`), the same two for
+def fw_bound(u, iters):
+    """K5's bound for ``iters`` rounds on u [N, m, 3]: the input read once
+    and dist, lb and v written once; 9m + 60 operations a round and 6m for
+    the start (see `kernel_timings`)."""
+    n, m = u.shape[0], u.shape[1]
+    return bound_ms(u.numel() * 4 + n * 20, n * (iters * (9 * m + 60) + 6 * m))
+
+
+def fw_group_sweep(u, iters):
+    """K5's register tier on u with G = 1, 2, 4 and 8 lanes a problem
+    (`cuda_gjk.gjk_diffset_group`): {G: device ms}, timed in the order 1,
+    2, 4, 8, 8, 4, 2, 1, best of each G's two.  Each G's output must bracket-
+    intersect the routed kernel's within 1e-5 x max|u| (the partial sums
+    of v are taken in another order, so paths part after round one)."""
+    import torch
+    from trajopt_tpu_torch.ops import cuda_gjk
+
+    ref = cuda_gjk.gjk_diffset(u, iters)
+    scale = u.abs().amax(dim=(1, 2))
+    best = {}
+    for g in (1, 2, 4, 8, 8, 4, 2, 1):
+        h = cuda_gjk.gjk_diffset_group(u, iters, g)
+        gap = float((torch.maximum(h.lb - ref.dist, ref.lb - h.dist) / scale).max())
+        check(gap <= 1e-5, f"K5 with G={g}: brackets {gap:.3g} x scale from the routed kernel's")
+        ms = device_ms(lambda g=g: cuda_gjk.gjk_diffset_group(u, iters, g))
+        best[g] = min(best.get(g, float("inf")), ms)
+    return best
+
+
+def fw_route_matrix(device, iters=32):
+    """The measurement behind `cuda_gjk.fw_route`'s choice of G: K5's device
+    ms with each G of `FW_ROUTE_G` that holds m (`gjk_diffset_group`), on
+    random sets at m = 6, 12, 24, 36, 64 and n = 16 to 64512 problems, with
+    the G the route takes.  [{m, n, device_ms: {G: ms}, routed}]"""
+    import numpy as np
+    from trajopt_tpu_torch.ops import cuda_gjk
+
+    t = _f32(device)
+    rng = np.random.default_rng(3)
+    out = []
+    for m in (6, 12, 24, 36, 64):
+        for n in (16, 128, 1024, 8192, 64512):
+            u = t(rng.normal(size=(n, m, 3)) + np.array([0.5, 0.2, -0.1]))
+            gs = [g for g in cuda_gjk.FW_ROUTE_G if g <= m and -(-m // g) <= cuda_gjk.FW_VPL[g][-1]]
+            times = {g: device_ms(lambda g=g: cuda_gjk.gjk_diffset_group(u, iters, g), 20) for g in gs}
+            out.append(dict(m=m, n=n, device_ms=times, routed=cuda_gjk.fw_route(m, n).g))
+    return out
+
+
+def shape_timings(topk, gjk, fw=(), plain_of=()):
+    """K1, K2 and K5 at every case of `topk_cases`, `gjk_cases` and
+    `fw_cases` (call-site shapes and edge cases): ms per call (`time_ms`;
+    best of kernel, library, library, kernel, or of two for K2 and K5), ms
+    from a CUDA graph (`device_ms`), the same two for
     `torch.topk(largest=False, sorted=True)` beside K1, each case's bound
     (as in `kernel_timings`), and plain ms for the cases named in
-    ``plain_of``.  Only the wrappers' call signatures are used, so
-    ``--time-shapes`` runs it on another checkout's port as well."""
+    ``plain_of``.  K5 is timed through `gjk_diffset(u, iters)` alone; a
+    port whose K5 takes m <= FW_MAX_M only (before the route by m) gets
+    "refused (m > FW_MAX_M)" for the larger shapes.  Only the wrappers'
+    call signatures are used, so ``--time-shapes`` runs it on another
+    checkout's port as well."""
     import torch
     from trajopt_tpu_torch.ops import cuda_gjk, cuda_topk
 
@@ -1157,6 +1234,19 @@ def shape_timings(topk, gjk, plain_of=()):
         if name in plain_of:
             plain = lambda u=u, iters=iters: cuda_gjk.gjk_exact_plain(u, iters)
             rows[-1]["plain_ms"] = min(time_ms(plain, 5), time_ms(plain, 5))
+    cap = getattr(cuda_gjk, "FW_MAX_M", None)
+    route = getattr(cuda_gjk, "fw_route", None)
+    for name, _, u, iters, _ in fw:
+        n, m = u.shape[0], u.shape[1]
+        bound, by = fw_bound(u, iters)
+        row = dict(kernel="gjk_fw", case=name, n=n, m=m, iters=iters, bound_ms=bound, bound_by=by,
+                   library_ms=None, library_device_ms=None,
+                   route=None if route is None else list(route(m, n)))
+        if cap is not None and m > cap:
+            rows.append(dict(row, ms=None, device_ms=None, refused=f"refused (m > {cap})"))
+            continue
+        kern = lambda u=u, iters=iters: cuda_gjk.gjk_diffset(u, iters)
+        rows.append(dict(row, ms=min(time_ms(kern), time_ms(kern)), device_ms=device_ms(kern)))
     return rows
 
 
@@ -1342,9 +1432,7 @@ def kernel_timings(device, pair_diffs, rows):
         out[name] = dict(row, shape=case.split(" ", 2)[-1])
     cases = {
         "gjk_fw": (f"{list(fa)} iters=32", lambda: cuda_gjk.gjk_diffset(pair_diffs, 32),
-                   lambda: cuda_gjk.gjk_fw_plain(pair_diffs, 32), None,
-                   bound_ms(pair_diffs.numel() * 4 + fa[0] * 20,
-                            fa[0] * (32 * (9 * fa[1] + 60) + 6 * fa[1]))),
+                   lambda: cuda_gjk.gjk_fw_plain(pair_diffs, 32), None, fw_bound(pair_diffs, 32)),
         "mod_chol": ("[256,19,19]", lambda: cuda_chol.mod_chol(h),
                      lambda: cuda_chol.mod_chol_plain(h),
                      lambda: torch.linalg.cholesky_ex(h),
@@ -1376,7 +1464,7 @@ def kernel_timings(device, pair_diffs, rows):
 
 
 def time_other_port(port, out_path):
-    """``--time-shapes``: `shape_timings` and `chol_shape_timings` (with
+    """``--time-shapes``: `shape_timings` (K1, K2 and K5) and `chol_shape_timings` (with
     the digests of K3's and K4's outputs) of the port in checkout ``port``
     on this checkout's inputs, written as one JSON object to ``out_path``
     (stdout if None), after `check_gjk_paths` on its K2 (logged to stderr).
@@ -1390,6 +1478,7 @@ def time_other_port(port, out_path):
     pair_diffs = fleet_pair_diffs(device)
     rng = np.random.default_rng(2)
     topk, gjk = topk_cases(device, rng), gjk_cases(device, rng, pair_diffs)
+    fw = fw_cases(device, rng, pair_diffs)
     chol = chol_callsite_inputs(device)
     for mod in [m for m in sys.modules if m.split(".")[0] == "trajopt_tpu_torch"]:
         del sys.modules[mod]
@@ -1403,7 +1492,7 @@ def time_other_port(port, out_path):
                             u.abs().amax(dim=(1, 2)), lambda line: print(line, file=sys.stderr, flush=True))
     text = json.dumps({"package": os.path.dirname(trajopt_tpu_torch.__file__),
                        "card": nvidia_smi_line(),
-                       "rows": shape_timings(topk, gjk) + chol_shape_timings(chol, library=False)})
+                       "rows": shape_timings(topk, gjk, fw) + chol_shape_timings(chol, library=False)})
     if out_path is None:
         print(text)
     else:
@@ -1430,7 +1519,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="On-card smoke test of trajopt_tpu_torch.")
     ap.add_argument("--time-shapes", metavar="DIR",
-                    help="only time the K1, K2, K3 and K4 of the checkout DIR at every timed "
+                    help="only time the K1, K2, K5, K3 and K4 of the checkout DIR at every timed "
                          "shape (this checkout's inputs) and print them as JSON")
     ap.add_argument("--out", metavar="FILE", help="with --time-shapes: write the JSON to FILE")
     args = ap.parse_args()
@@ -1518,11 +1607,11 @@ def main() -> int:
     log(f"== phase 5: kernel, plain, library and bound times ({smi}); ms per call between "
         "CUDA events, device ms from 50 launches in one CUDA graph")
     import numpy as np
-    from trajopt_tpu_torch.ops import cuda_chol, cuda_topk
+    from trajopt_tpu_torch.ops import cuda_chol, cuda_gjk, cuda_topk
 
     rng = np.random.default_rng(2)
     rows = shape_timings(topk_cases(device, rng), gjk_cases(device, rng, pair_diffs),
-                         plain_of=set(HEADLINE.values()))
+                         fw_cases(device, rng, pair_diffs), plain_of=set(HEADLINE.values()))
     times = kernel_timings(device, pair_diffs, rows)
     for name, tm in times.items():
         lib = "none" if tm["library_ms"] is None else f"{tm['library_ms']:.4f} ms per call" + (
@@ -1536,15 +1625,30 @@ def main() -> int:
     log(f"  K1 / torch.topk at {k1['shape']}: per call {k1['ms']:.4f} / {k1['library_ms']:.4f} ms "
         f"= {k1['ms'] / k1['library_ms']:.2f}; device {k1['device_ms']:.4f} / "
         f"{k1['library_device_ms']:.4f} ms = {k1['device_ms'] / k1['library_device_ms']:.2f}")
-    log("  K1 and K2 at every case of phase 2 (ms per call / device ms; bound):")
+    log("  K1, K2 and K5 at every case of phase 2 (ms per call / device ms; bound):")
     for r in rows:
         if r["kernel"] == "smallest_k":
             log(f"    K1 {r['case']} route {cuda_topk.route(r['n'], r['k'])}: kernel "
                 f"{r['ms']:.4f} / {r['device_ms']:.4f}, torch.topk {r['library_ms']:.4f} / "
                 f"{r['library_device_ms']:.4f}, bound {r['bound_ms']:.5f} ({r['bound_by']})")
-        else:
+        elif r["kernel"] == "gjk_exact":
             log(f"    K2 {r['case']}: kernel {r['ms']:.4f} / {r['device_ms']:.4f}, bound "
                 f"{r['bound_ms']:.5f} ({r['bound_by']}, {r['rounds']} support rounds)")
+        else:
+            tier, g, vpl = r["route"]
+            log(f"    K5 {r['case']} {r['iters']} rounds, route {tier} G={g} VPL={vpl}: kernel "
+                f"{r['ms']:.4f} / {r['device_ms']:.4f}, bound {r['bound_ms']:.5f} ({r['bound_by']})")
+    sweep = fw_group_sweep(pair_diffs, 32)
+    log(f"  K5 G sweep at {list(pair_diffs.shape)} x 32 rounds, device ms by lanes a problem: "
+        + ", ".join(f"G={g} {ms:.4f}" for g, ms in sweep.items())
+        + f" (routed: G={cuda_gjk.fw_route(pair_diffs.shape[1], pair_diffs.shape[0]).g})")
+    matrix = fw_route_matrix(device)
+    log("  K5 device ms by lanes a problem G, random sets x 32 rounds (the route's G marked *):")
+    for r in matrix:
+        best = min(r["device_ms"].values())
+        log(f"    m={r['m']} n={r['n']}: " + ", ".join(
+            f"G={g}{'*' if g == r['routed'] else ''} {ms:.4f}" for g, ms in r["device_ms"].items())
+            + f"; routed / fastest {r['device_ms'][r['routed']] / best:.2f}")
     floor = latency_floor(device)
     log(f"  latency probe (device ms): empty kernel {floor['empty_ms']:.5f}, one K3-like step "
         f"{floor['k3_step_ms']:.6f}, one K4-like step {floor['k4_step_ms']:.6f}")
@@ -1582,6 +1686,10 @@ def main() -> int:
         if shapes:
             kernels[-1]["by_call_shape"] = shapes
             kernels[-1]["latency_floor"] = floor
+        if name == "gjk_fw":
+            kernels[-1]["by_call_shape"] = [r for r in rows if r["kernel"] == name]
+            kernels[-1]["group_sweep_device_ms"] = sweep
+            kernels[-1]["route_matrix"] = matrix
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

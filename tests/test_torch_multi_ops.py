@@ -28,6 +28,7 @@ from trajopt_tpu.scenes import io as jio
 from trajopt_tpu.solver import admm as jadmm
 from trajopt_tpu.solver import multi as jmulti
 from trajopt_tpu_torch import config as tconfig
+from trajopt_tpu_torch import testing as kernel_cases
 from trajopt_tpu_torch import types as tt
 from trajopt_tpu_torch.ops import broadphase as bp
 from trajopt_tpu_torch.ops import ccd, cuda_gjk
@@ -119,7 +120,8 @@ def _tightness_faults(got, want, want_half, u, true, tol):
 
 def _assert_same_brackets(run_got, run_want, u, iters, tol):
     """``run_*(rounds) -> HullDist``: soundness and tightness after ``iters``
-    rounds, and the one-round control."""
+    rounds, and the one-round control (except at m = 1, where every round
+    returns the one vertex)."""
     got, want = run_got(iters), run_want(iters)
     scale = np.abs(u).reshape(len(u), -1).max(1)
     g_lb, g_d = _np(got.lb), _np(got.dist)
@@ -131,7 +133,7 @@ def _assert_same_brackets(run_got, run_want, u, iters, tol):
         assert ((true - d) / scale).max() <= tol
     want_half = run_want(iters // 2)
     assert _tightness_faults(got, want, want_half, u, true, tol) == []
-    assert _tightness_faults(run_got(1), want, want_half, u, true, tol)
+    assert _tightness_faults(run_got(1), want, want_half, u, true, tol) or u.shape[1] == 1
 
 
 @pytest.mark.parametrize("n,m", [(5, 6), (130, 12), (64, 36)])
@@ -199,9 +201,102 @@ def test_hull_hull_distance_matches_jax():
         _close(g, w)
 
 
-def test_gjk_diffset_refuses_more_than_64_vertices_on_the_card():
-    with pytest.raises(ValueError, match="m <= 64"):
-        cuda_gjk.gjk_diffset(torch.empty(4, 65, 3, dtype=torch.float32, device="meta"))
+# the edge sets on which chip_smoke.py holds K5 to its plain version on the
+# card, one per route of `fw_route` and per tie rule: here the plain version
+# is held to the Pallas kernel on the same inputs
+_FW_EDGES = kernel_cases.fw_edge_sets(np.random.default_rng(kernel_cases.EDGE_SEED + 4))
+
+
+def _edge_u(x):
+    return x if not isinstance(x, tuple) else (x[0][:, :, None] - x[1][:, None]).reshape(
+        len(x[0]), -1, 3)
+
+
+@pytest.mark.parametrize("name,x,iters,n_brute", _FW_EDGES, ids=[c[0] for c in _FW_EDGES])
+def test_gjk_fw_plain_edge_sets_match_pallas_kernel(interpret_mode, name, x, iters, n_brute):
+    """float32: one round to 1e-5 x max|u|, then the bracket contract, and
+    plain's brackets contain the brute-force distance on ``n_brute`` rows."""
+    if isinstance(x, tuple):
+        a, b = (c.astype(np.float32) for c in x)
+        ours = lambda k: cuda_gjk.gjk_pairs(torch.as_tensor(a), torch.as_tensor(b), k)
+        theirs = lambda k: pg.gjk_pairs(jnp.asarray(a), jnp.asarray(b), iters=k)
+    else:
+        a = x.astype(np.float32)
+        ours = lambda k: cuda_gjk.gjk_diffset(torch.as_tensor(a), k)
+        theirs = lambda k: pg.gjk_diffset(jnp.asarray(a), iters=k)
+    u = _edge_u(tuple(c.astype(np.float32) for c in x) if isinstance(x, tuple) else a)
+    _assert_one_round_equal(ours(1), theirs(1), u, 1e-5)
+    _assert_same_brackets(ours, theirs, u, iters, 1e-5)
+    if n_brute:
+        got = ours(iters)
+        true = kernel_cases.brute_origin_dist(u[:n_brute])
+        scale = np.abs(u[:n_brute]).reshape(n_brute, -1).max(1)
+        assert ((_np(got.lb)[:n_brute] - true) / scale).max() <= 1e-5
+        assert ((true - _np(got.dist)[:n_brute]) / scale).max() <= 1e-5
+
+
+@pytest.mark.parametrize(
+    "m,n,want",
+    [(1, 16, ("registers", 1, 1)), (2, 16, ("registers", 1, 2)), (3, 64512, ("registers", 1, 3)),
+     (6, 256, ("registers", 4, 2)), (6, 64512, ("registers", 1, 6)),
+     (12, 130, ("registers", 8, 2)), (12, 8192, ("registers", 1, 12)),
+     (13, 8192, ("registers", 1, 18)), (24, 1024, ("registers", 8, 3)),
+     (36, 16, ("registers", 8, 5)), (36, 1056, ("registers", 8, 5)),
+     (36, 1057, ("registers", 4, 9)), (36, 2112, ("registers", 4, 9)),
+     (36, 2113, ("registers", 1, 36)), (36, 64512, ("registers", 1, 36)),
+     (37, 24, ("registers", 8, 5)), (37, 64512, ("registers", 4, 12)),
+     (64, 16, ("registers", 8, 8)), (64, 8192, ("registers", 4, 16)),
+     (65, 12, ("shared", 32, 0)), (144, 16384, ("shared", 32, 0)), (512, 1, ("shared", 32, 0)),
+     (513, 3, ("device", 32, 0)), (100000, 1, ("device", 32, 0))],
+)
+def test_fw_route_by_m(m, n, want):
+    """K5's route is a pure function of m and the batch n, defined for every
+    m >= 1: no lane of a register-tier group is empty, its slots hold every
+    vertex, and the most lanes a problem whose lanes stay within
+    FW_IDLE_LANES are taken."""
+    route = cuda_gjk.fw_route(m, n)
+    assert tuple(route) == want
+    if route.tier == "registers":
+        assert route.g <= m <= route.g * route.vpl and route.vpl in cuda_gjk.FW_VPL[route.g]
+        assert route.g in cuda_gjk.FW_ROUTE_G
+
+
+def test_fw_builds_match_the_kernel_source():
+    """`FW_VPL` lists the register tier's builds that csrc/gjk_fw.cu makes."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(cuda_gjk.__file__).parent.parent / "csrc" / "gjk_fw.cu").read_text()
+    builds = src[src.index("#define TRAJOPT_FW_BUILDS"):].split("\n\n", 1)[0]
+    got = {(int(g), int(v)) for g, v in re.findall(r"X\((\d+), (\d+)\)", builds)}
+    assert got == {(g, v) for g, vs in cuda_gjk.FW_VPL.items() for v in vs}
+
+
+def test_fw_route_refuses_an_empty_set():
+    with pytest.raises(ValueError, match="m >= 1"):
+        cuda_gjk.fw_route(0, 1)
+
+
+def test_fw_edge_sets_reach_the_tier_they_name():
+    tiers = set()
+    for name, x, _, _ in _FW_EDGES:
+        u = _edge_u(x)
+        tier = cuda_gjk.fw_route(u.shape[1], u.shape[0]).tier
+        assert name.endswith(f"({tier})")
+        tiers.add(tier)
+    assert tiers == {"registers", "shared", "device"}
+
+
+@pytest.mark.parametrize("m", [36, 65, 144, 513])
+def test_gjk_diffset_takes_any_m_off_the_cpu(m):
+    """Off the CPU every m goes to the kernel route, which takes contiguous
+    float32 CUDA tensors only (float64 raises TypeError, another device
+    ValueError): no size is refused and none falls back to the plain
+    version."""
+    with pytest.raises(TypeError, match="float32"):
+        cuda_gjk.gjk_diffset(torch.empty(4, m, 3, dtype=torch.float64, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_gjk.gjk_diffset(torch.empty(4, m, 3, dtype=torch.float32, device="meta"))
 
 
 # ---------------------------------------------------------------------------

@@ -49,7 +49,7 @@ _SIGNATURES = {
     "trajopt_smallest_k_radix": [_vp, _vp, _vp, _int, _int, _int, _vp],
     "trajopt_smallest_k_rounds": [_vp, _vp, _vp, _int, _int, _int, _vp],
     "trajopt_gjk_exact": [_vp, _vp, _vp, _vp, _int, _int, _int, _vp],
-    "trajopt_gjk_fw": [_vp, _vp, _vp, _vp, _int, _int, _int, _vp],
+    "trajopt_gjk_fw": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _vp],
     "trajopt_mod_chol": [_vp, _vp, _vp, _int, _int, _int, _int, _float, _vp],
     "trajopt_chol_solve": [_vp, _vp, _vp, _int, _int, _int, _vp],
     "trajopt_factor_solve": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _float, _vp],

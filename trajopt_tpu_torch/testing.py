@@ -1,6 +1,7 @@
 """Edge-case inputs and a float64 oracle for checking K1 (`smallest_k`), K2
-(`gjk_exact`) and K3/K4 (`mod_chol`, `chol_solve`, `factor_solve`) where
-their decisions and their routes are most fragile.
+(`gjk_exact`), K3/K4 (`mod_chol`, `chol_solve`, `factor_solve`) and K5
+(`gjk_diffset`, `gjk_pairs`) where their decisions and their routes are
+most fragile.
 
 ``chip_smoke.py`` holds the kernels to their plain versions on these inputs
 on the card; ``tests/test_torch_kernels.py`` pins the plain versions to the
@@ -87,6 +88,49 @@ def gjk_edge_sets(rng):
     dup = np.concatenate([base, base[:, ::-1], base], axis=1)          # j, 23 - j, j + 24 alike
     out.append(("edge duplicates [128,36,3]", dup, 16, 8))
     return out
+
+
+def fw_edge_sets(rng):
+    """(name, x, iters, brute rows) aimed at K5's routes (`cuda_gjk.fw_route`)
+    and its tie rules, float64 numpy: ``x`` is a difference set u [N, m, 3]
+    or a pair of hull batches (a, b) for `gjk_pairs`.  m = 1 and 2 (groups
+    of 1 and 2 lanes), 37 (not a multiple of the group), 64 (the last
+    register tier), 65 and 144 (12-vertex hull pairs) in shared memory, 513
+    in device memory; duplicated vertices (exact score ties), the origin
+    inside the hull, a coplanar set, and hull pairs separated at 1e3 scale.
+    Each name ends with the tier it reaches.  ``brute rows``: how many
+    leading problems `brute_origin_dist` checks (all where m <= 12, at most
+    4 where m <= 64, none above: 144 vertices have 17 M 4-subsets)."""
+
+    def cloud(n, m, spread=1.0):
+        centre = rng.normal(size=(n, 1, 3)) * rng.choice([0.3, 1.5, 3.0], size=(n, 1, 1))
+        return rng.normal(size=(n, m, 3)) * spread + centre
+
+    def hull_pairs(n, m, gap, size):
+        way = rng.normal(size=(n, 1, 3))
+        way *= gap / np.linalg.norm(way, axis=2, keepdims=True)
+        return rng.normal(size=(n, m, 3)) * size, rng.normal(size=(n, m, 3)) * size + way
+
+    base = rng.normal(size=(32, 12, 3)) * 0.5 + rng.normal(size=(32, 1, 3)) * 1.5
+    inside = rng.normal(size=(16, 24, 3))
+    inside -= inside.mean(axis=1, keepdims=True)                    # the centroid at the origin
+    coplanar = rng.normal(size=(16, 30, 3))
+    coplanar[..., 2] = 0.4 * rng.choice([-1.0, 1.0], size=(16, 1))
+    return [
+        ("edge m=1 [16,1,3] (registers)", cloud(16, 1), 24, 16),
+        ("edge m=2 [16,2,3] (registers)", cloud(16, 2), 24, 16),
+        ("edge m=37 [24,37,3] (registers)", cloud(24, 37), 32, 4),
+        ("edge m=64 [16,64,3] (registers)", cloud(16, 64), 32, 2),
+        ("edge m=65 [12,65,3] (shared)", cloud(12, 65), 32, 0),
+        ("edge m=144 pairs [8,12]x[8,12] (shared)", hull_pairs(8, 12, 2.5, 0.3), 32, 0),
+        ("edge m=513 [3,513,3] (device)", cloud(3, 513), 32, 0),
+        ("edge duplicates [32,36,3] (registers)",
+         np.concatenate([base, base[:, ::-1], base], axis=1), 32, 4),   # j, 23 - j, j + 24 alike
+        ("edge origin inside [16,24,3] (registers)", inside, 32, 4),
+        ("edge coplanar [16,30,3] (registers)", coplanar, 32, 4),
+        ("edge separated at 1e3 pairs [16,6]x[16,6] (registers)", hull_pairs(16, 6, 3000.0, 300.0),
+         32, 16),
+    ]
 
 
 CHOL_EDGE_SIZES = (1, 2, 15, 24, 31, 32, 33, 42, 60, 63, 64)
