@@ -17,12 +17,20 @@ Phases, each reported on its own lines with the seconds it took:
    scale; for K3, K4 and the fused kernel: m = 1 to 64 on each side of
    the tiers, zero, diagonal, negative definite and scaled blocks, batches
    of 1 and 4097, ``gmw=False`` on non-PD blocks, four right-hand-side
-   layouts);
+   layouts); the ``optimal_plane`` path's own inputs taken from the start
+   states (K2 on the full plane tables [512,6,3] and [32768,6,3], far slots
+   included; K1 at the per-robot broad phase's [64,4,4000] and
+   [64,4,8,64]), and the fused kernel with ``gmw=False`` (the ``eigh``
+   slack step) at [4,19,19] and [256,19,19];
 3. the single-UAV bridge solve (the reference's benchmark scene) at P=4 and
    P=16 pieces on the card, checked against the C++ reference's trajectory
    quality (tools/ref_baseline/results.json) and, at P=4, against the
    port's own float64 CPU run; the kernels' launch counters must all move
-   during each solve;
+   during each solve; then at P=4 with ``optimal_plane`` (against the
+   port's CPU float64 run and the JAX package's CPU float64 row, host
+   syncs <= 4), with ``psd_method="eigh"`` (against the C++ row), and a
+   checkpoint-and-resume of the default and the ``optimal_plane`` solve
+   that must end at the uninterrupted run's iteration count;
 4. the 64-robot cross (the repository's north-star configuration) in
    coupled and decoupled mode on the card: convergence, trajectory quality
    against the C++ rows, obstacle clearance, pairwise clearance by K2
@@ -30,7 +38,11 @@ Phases, each reported on its own lines with the seconds it took:
    solve, also by call shape, host syncs per steady iteration and the
    device's idle
    share; then 4 robots coupled on the card against the port's float64 CPU
-   run and the C++ row;
+   run and the C++ row; then the cross coupled with ``optimal_plane``
+   (32768 K2 slots an iteration) against the JAX package's CPU float64
+   row, with the same clearance, launch, sync (<= 9) and idle checks, and
+   4 robots coupled with ``optimal_plane`` against the port's CPU float64
+   run;
 5. per-kernel times beside their plain versions, the least time the card
    could take for the same work, and the one PyTorch call that computes the
    same function where there is one; then K1 (beside `torch.topk`), K2 and
@@ -59,6 +71,7 @@ change, parent in one call).
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -162,9 +175,55 @@ def _f32(device):
     return lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=device)
 
 
+def recorded_calls(module, name, run):
+    """The positional arguments of every call of ``module.name`` that
+    ``run()`` makes (the wrappers are looked up on their module at each
+    call, so a stand-in there sees them all)."""
+    real, calls = getattr(module, name), []
+
+    def spy(*args, **kwargs):
+        calls.append(args)
+        return real(*args, **kwargs)
+
+    setattr(module, name, spy)
+    try:
+        run()
+    finally:
+        setattr(module, name, real)
+    return calls
+
+
+@functools.lru_cache(maxsize=None)
+def optimal_plane_inputs(device):
+    """The K1 and K2 inputs of the ``optimal_plane`` obstacle planes at the
+    start states of the bridge (P=4) and the 64-robot cross: the full plane
+    tables that K2 gets there, every (segment, candidate) slot with the far
+    ones included ([512,6,3] and [32768,6,3]), and the cross's per-robot
+    two-level broad phase (K1 at [64,4,4000] k=64 and [64,4,8,64] k=16,
+    where the default path compacts the fleet).  Returns (K1 cases, K2
+    cases) as `topk_cases` and `gjk_cases` list them; made once a run."""
+    import torch
+    from trajopt_tpu_torch.ops import cuda_gjk, cuda_topk
+    from trajopt_tpu_torch.solver import admm
+
+    topk, gjk = [], []
+    for label, build in (("bridge P=4", lambda: build_problem(SLICE_PIECES[0], device, torch.float32)),
+                         (f"u{FLEET} cross", lambda: build_fleet(FLEET, device, torch.float32))):
+        cfg, _, _, consts, scene, state = build()
+        cfg = cfg.replace(optimal_plane=True)
+        run = lambda: admm.separate_planes(consts, cfg, state.spline, scene)
+        for u, iters in recorded_calls(cuda_gjk, "gjk_exact", run):
+            gjk.append((f"full table {label} {list(u.shape)} iters={iters}", u, iters, 256))
+        if label != "bridge P=4":       # the bridge's K1 shapes are the default path's
+            for x, k in recorded_calls(cuda_topk, "smallest_k", run):
+                topk.append((f"optimal {label} {list(x.shape)} k={k}", x.contiguous(), k))
+    return topk, gjk
+
+
 def topk_cases(device, rng):
     """(name, x, k) at the single-UAV and 64-robot slice shapes plus ties and
-    short rows, then `testing.topk_edge_rows`."""
+    short rows, then `testing.topk_edge_rows`, then the ``optimal_plane``
+    path's own call shapes (`optimal_plane_inputs`)."""
     import numpy as np
     from trajopt_tpu_torch.testing import EDGE_SEED, topk_edge_rows
 
@@ -210,7 +269,7 @@ def topk_cases(device, rng):
         ("pair ccd level2 [64,4,8,8] k=5", t(dists((FLEET, FLEET_PIECES, 8, 8), 0.3)), 5),
         ("obstacle ccd segments [1,2048] k=64", t(dists((1, 2048), 0.5)), 64),
         ("obstacle ccd level1 [64,4000] k=17", t(dists((64, FLEET_POINTS), 0.3)), 17),
-    ] + more + edges
+    ] + more + edges + optimal_plane_inputs(device)[0]
 
 
 def check_topk(device, rng, log):
@@ -242,7 +301,9 @@ def check_topk(device, rng, log):
 
 def gjk_cases(device, rng, pair_diffs):
     """(name, u, iters, brute rows): the brute-force oracle runs on the
-    first ``brute rows`` problems of each case (it is cubic-to-quartic in m)."""
+    first ``brute rows`` problems of each case (it is cubic-to-quartic in m).
+    The last cases are the ``optimal_plane`` full tables
+    (`optimal_plane_inputs`)."""
     import numpy as np
     from trajopt_tpu_torch.testing import EDGE_SEED, gjk_edge_sets
 
@@ -271,7 +332,8 @@ def gjk_cases(device, rng, pair_diffs):
         (f"fleet pairs {list(pair_diffs.shape)} iters=48 (64-robot start)", pair_diffs, 48, 8),
     ] + gjk_callsite_cases(device) + [
         (name, t(u), iters, n_brute)
-        for name, u, iters, n_brute in gjk_edge_sets(np.random.default_rng(EDGE_SEED + 1))]
+        for name, u, iters, n_brute in gjk_edge_sets(np.random.default_rng(EDGE_SEED + 1))
+    ] + optimal_plane_inputs(device)[1]
 
 
 def gjk_callsite_cases(device):
@@ -737,6 +799,59 @@ def check_solve(device, rng, factors, log):
     return err, err_fused
 
 
+def eigh_blocks(device, seed):
+    """[4,19,19] and [256,19,19] blocks as the ``psd_method="eigh"`` slack
+    step hands the fused kernel (``gmw=False``): random symmetric blocks
+    after the eigenvalue shift (`gradients.psd_repair`), with right-hand
+    sides.  [(name, h, b)]."""
+    import numpy as np
+    import torch
+    from trajopt_tpu_torch.ops import gradients as gr
+
+    g = np.random.default_rng(seed)
+    out = []
+    for n in (SLICE_PIECES[0], FLEET * FLEET_PIECES):
+        a = g.normal(size=(n, 19, 19))
+        h = gr.psd_repair(torch.as_tensor(a + a.transpose(0, 2, 1), dtype=torch.float32,
+                                          device=device))
+        out.append((f"eigh-shifted [{n},19,19] b=[{n},19]", h.contiguous(),
+                    torch.as_tensor(g.normal(size=(n, 19)), dtype=torch.float32, device=device)))
+    return out
+
+
+def check_pd_solve(device, log):
+    """The fused kernel with ``gmw=False`` (the ``eigh`` slack step: a plain
+    Cholesky factor and solve of shifted, positive-definite blocks) against
+    `factor_solve_plain(gmw=False)` at [4,19,19] and [256,19,19]: no boost,
+    x within 1e-3 relative of plain's or its residual on h within twice
+    plain's (and 1e-5), and ``want_l=False`` the same x bit for bit.
+    Returns the largest abs error."""
+    import torch
+    from trajopt_tpu_torch.ops import cuda_chol
+    from trajopt_tpu_torch.testing import EDGE_SEED
+
+    err = 0.0
+    for name, h, b in eigh_blocks(device, EDGE_SEED + 6):
+        l, e, x = cuda_chol.factor_solve(h, b, gmw=False)
+        none, e2, x2 = cuda_chol.factor_solve(h, b, gmw=False, want_l=False)
+        _sync(device)
+        pl, pe, px = cuda_chol.factor_solve_plain(h, b, gmw=False)
+        check(bool((e == 0).all()) and bool((pe == 0).all()), f"fused gmw=False {name}: a boost")
+        check(none is None and torch.equal(x2, x), f"fused gmw=False {name}: want_l=False changes x")
+        check(bool(torch.isfinite(x).all()), f"fused gmw=False {name}: x is not finite")
+        dx = float((x - px).abs().max() / px.abs().max())
+        res, res_plain = (_system_residual(h.double(), v.double(), b.double()) for v in (x, px))
+        check(dx <= 1e-3 or res <= max(1e-5, 2.0 * res_plain),
+              f"fused gmw=False {name}: x differs from plain by {dx:.3g} relative, residual "
+              f"{res:.3g} (plain {res_plain:.3g})")
+        dl = float((l - pl).abs().max() / pl.abs().max())
+        check(dl <= 1e-4, f"fused gmw=False {name}: L differs from plain by {dl:.3g} relative")
+        err = max(err, float((x - px).abs().max()), float((l - pl).abs().max()))
+        log(f"  fused factor_solve gmw=False {name}: x vs plain {dx:.2e}, L vs plain {dl:.2e}, "
+            f"residual {res:.2e} (plain {res_plain:.2e})")
+    return err
+
+
 def check_kernels(device, log, seed=0, pair_diffs=None):
     """Every kernel against its plain version; returns max abs errors.
     ``pair_diffs``: the 64-robot start's pair differences [N,36,3] (built
@@ -761,6 +876,7 @@ def check_kernels(device, log, seed=0, pair_diffs=None):
     errs["mod_chol"], factors = check_chol(device, rng, log)
     lap("K3 checks")
     errs["chol_solve"], errs["factor_solve"] = check_solve(device, rng, factors, log)
+    errs["factor_solve"] = max(errs["factor_solve"], check_pd_solve(device, log))
     lap("K4 and fused checks")
     return errs
 
@@ -770,13 +886,15 @@ def check_kernels(device, log, seed=0, pair_diffs=None):
 # ---------------------------------------------------------------------------
 
 
-def build_problem(pieces, device, dtype):
+def build_problem(pieces, device, dtype, **options):
+    """The bridge at P pieces; ``options`` (``optimal_plane``, ``psd_method``)
+    go to the config."""
     from trajopt_tpu_torch import types as tt
     from trajopt_tpu_torch.config import TrajOptConfig
     from trajopt_tpu_torch.ops import splines as sp
     from trajopt_tpu_torch.scenes import generators as gen
 
-    cfg = TrajOptConfig(ks=1e-8, max_planes=16, max_ccd_candidates=16)
+    cfg = TrajOptConfig(ks=1e-8, max_planes=16, max_ccd_candidates=16, **options)
     cloud, wp = gen.bridge_scene(n_points=N_POINTS, seed=0, n_pieces=pieces)
     ops = sp.build_spline_ops(pieces, cfg.res)
     kw = dict(device=device, dtype=dtype)
@@ -784,14 +902,17 @@ def build_problem(pieces, device, dtype):
             tt.init_state(ops, wp, cfg.init_piece_time, **kw))
 
 
-def solve_case(pieces, device, dtype):
-    """One bridge solve; returns the result row (iterations, quality, timing)."""
+def solve_case(pieces, device, dtype, max_iters=MAX_ITERS, checkpointer=None, **options):
+    """One bridge solve; returns the result row (iterations, quality, timing,
+    the final spline; ``last_iter``: the last iteration's number, which a
+    resumed solve continues)."""
     from trajopt_tpu_torch import metrics as mt
     from trajopt_tpu_torch.solver import driver
 
-    cfg, ops, cloud, consts, scene, state0 = build_problem(pieces, device, dtype)
+    cfg, ops, cloud, consts, scene, state0 = build_problem(pieces, device, dtype, **options)
     t0 = time.perf_counter()
-    state, hist = driver.solve(consts, cfg, state0, scene, max_iters=MAX_ITERS)
+    state, hist = driver.solve(consts, cfg, state0, scene, max_iters=max_iters,
+                               checkpointer=checkpointer)
     wall = time.perf_counter() - t0
     spline = state.spline.detach().double().cpu().numpy()
     piece_time = float(state.piece_time)
@@ -807,6 +928,8 @@ def solve_case(pieces, device, dtype):
         "offset": cfg.offset,
         "median_iter_ms": statistics.median(h["wall_ms"] for h in hist),
         "solve_s": wall,
+        "last_iter": hist[-1]["iter"],
+        "spline": spline,
     }
 
 
@@ -820,10 +943,10 @@ def reference_row(mode, **key):
     raise KeyError(f"no C++ reference row for {mode} {key}")
 
 
-def check_parity(label, row, ref, log):
+def check_parity(label, row, ref, log, against="C++"):
     dtime = abs(row["ccd_time"] - ref["ccd_time"]) / ref["ccd_time"]
     dlen = abs(row["ccd_len"] - ref["ccd_len"]) / ref["ccd_len"]
-    log(f"  vs C++ {label}: iters {ref['iters']} / {row['iters']}, "
+    log(f"  vs {against} {label}: iters {ref['iters']} / {row['iters']}, "
         f"ccd_time {ref['ccd_time']:.4f} / {row['ccd_time']:.4f} ({dtime * 100:.2f}%), "
         f"ccd_len {ref['ccd_len']:.4f} / {row['ccd_len']:.4f} ({dlen * 100:.2f}%), "
         f"min clearance {row['min_clearance']:.4f} (offset {row['offset']})")
@@ -868,13 +991,105 @@ def log_syncs(label, where, log):
         log(f"    {n:3d}  {line}")
 
 
-def single_steady_syncs(pieces, device):
+def single_steady_syncs(pieces, device, **options):
+    """Host syncs of the second step of a bridge solve (`count_syncs`);
+    under ``optimal_plane`` the cached step with the first step's cache."""
     import torch
+    from trajopt_tpu_torch import types as tt
     from trajopt_tpu_torch.solver import admm
 
-    cfg, ops, cloud, consts, scene, state = build_problem(pieces, device, torch.float32)
-    state, _ = admm.admm_step(consts, cfg, state, scene)
-    return count_syncs(lambda: admm.admm_step(consts, cfg, state, scene))
+    cfg, ops, cloud, consts, scene, state = build_problem(pieces, device, torch.float32, **options)
+    if not cfg.optimal_plane:
+        state, _ = admm.admm_step(consts, cfg, state, scene)
+        return count_syncs(lambda: admm.admm_step(consts, cfg, state, scene))
+    cache = tt.empty_plane_cache(consts.piece_num, consts.res, cfg.max_planes, device=device,
+                                 dtype=torch.float32)
+    state, _, cache = admm.admm_step_cached(consts, cfg, state, scene, cache)
+    return count_syncs(lambda: admm.admm_step_cached(consts, cfg, state, scene, cache))
+
+
+def log_launches(label, launches, by_shape, log):
+    log(f"    launches {launches}")
+    log(f"    launches by call shape: {by_shape}")
+
+
+def single_options_phase(device, card_rows, log):
+    """Phase 3's other options on the bridge at P=4, each on the card:
+    (a) ``optimal_plane``: converged, iterations within ITER_SLACK of the
+    port's CPU float64 run and of the JAX package's CPU float64 row
+    (`testing.OPTIMAL_PLANE_JAX_ROWS`), ccd_time and ccd_len within 2% of
+    both, clearance >= offset, host syncs per steady iteration <= 4;
+    (b) ``psd_method="eigh"`` held to the C++ row as the default solve is;
+    (c) checkpoint and resume of the default and the ``optimal_plane``
+    solve: 12 iterations with a checkpoint every 5, then a fresh
+    `driver.solve` resumed from the last one to convergence, which must end
+    at the uninterrupted card run's iteration count (``card_rows``) with
+    its spline within 1e-5 x max|spline|.  Returns (launches, launches by
+    shape) of the (a) and (b) solves."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from trajopt_tpu_torch.ops import _cuda
+    from trajopt_tpu_torch.runtime.checkpoint import CheckpointManager
+    from trajopt_tpu_torch.testing import OPTIMAL_PLANE_JAX_ROWS
+
+    p = SLICE_PIECES[0]
+    f32 = torch.float32
+    launches, by_shape = {}, {}
+    for label, options, kernels in (
+            ("optimal_plane", dict(optimal_plane=True), SOLVE_KERNELS),
+            # the eigh shift replaces K3 (the GMW repair of the spline
+            # blocks, its only caller); the KKT and the slack step keep the
+            # fused kernel, the KKT refinement K4
+            ("eigh", dict(psd_method="eigh"), [k for k in SOLVE_KERNELS if k != "mod_chol"])):
+        _cuda.reset_launches()
+        row = solve_case(p, device, f32, **options)
+        torch.cuda.synchronize()
+        key = f"single p{p} {label}"
+        launches[key], by_shape[key] = dict(_cuda.LAUNCHES), shape_counts()
+        card_rows[label] = row
+        log(f"  p{p} {label}: iters {row['iters']}, gnorm {row['gnorm']:.4g}, ccd_time "
+            f"{row['ccd_time']:.4f}, ccd_len {row['ccd_len']:.4f}, min clearance "
+            f"{row['min_clearance']:.4f}, median {row['median_iter_ms']:.2f} ms/iter, "
+            f"solve {row['solve_s']:.2f} s")
+        log_launches(key, launches[key], by_shape[key], log)
+        for name in kernels:
+            check(launches[key][name] > 0, f"{key}: kernel {name} was never launched by the solve")
+        if label == "eigh":
+            check_parity(key, row, reference_row("single", pieces=p), log)
+            log_syncs(f"steady p{p} eigh", single_steady_syncs(p, device, **options), log)
+            continue
+        cpu = solve_case(p, torch.device("cpu"), torch.float64, **options)
+        jax_row = OPTIMAL_PLANE_JAX_ROWS[f"single p{p}"]
+        for against, ref in (("the port's CPU float64", cpu), ("JAX CPU float64", jax_row)):
+            gap = abs(row["iters"] - ref["iters"])
+            check(gap <= ITER_SLACK, f"{key}: iterations differ from {against} by {gap}")
+            check(ref["converged"], f"{key}: {against} did not converge")
+            check_parity(key, row, ref, log, against=against)
+        syncs = single_steady_syncs(p, device, **options)
+        log_syncs(f"steady p{p} {label}", syncs, log)
+        check(sum(syncs.values()) <= 4, f"{key}: {sum(syncs.values())} host syncs per steady "
+                                        "iteration (the default path makes 4)")
+    for label, options in (("default", {}), ("optimal_plane", dict(optimal_plane=True))):
+        ref = card_rows[label]
+        with tempfile.TemporaryDirectory(dir=HERE) as d:
+            first = solve_case(p, device, f32, max_iters=12, checkpointer=CheckpointManager(d, every=5),
+                               **options)
+            saved = sorted(os.listdir(d))
+            resumed = solve_case(p, device, f32, checkpointer=CheckpointManager(d, every=5), **options)
+        total = resumed["last_iter"] + 1
+        diff = float(np.abs(resumed["spline"] - ref["spline"]).max())
+        scale = float(np.abs(ref["spline"]).max())
+        log(f"  p{p} {label} checkpoint and resume: {first['iters']} iterations, checkpoints "
+            f"{saved}, resumed at {total - resumed['iters']} and ran {resumed['iters']} more to "
+            f"{total} (uninterrupted {ref['iters']}), max |spline - uninterrupted| {diff:.3g} "
+            f"({diff / scale:.2e} x max|spline|)")
+        check(resumed["converged"], f"p{p} {label}: the resumed solve did not converge")
+        check(total == ref["iters"], f"p{p} {label}: resumed to {total} iterations, "
+                                     f"uninterrupted {ref['iters']}")
+        check(diff <= 1e-5 * scale, f"p{p} {label}: the resumed spline is {diff:.3g} off")
+    return launches, by_shape
 
 
 # ---------------------------------------------------------------------------
@@ -882,17 +1097,18 @@ def single_steady_syncs(pieces, device):
 # ---------------------------------------------------------------------------
 
 
-def build_fleet(uavs, device, dtype):
+def build_fleet(uavs, device, dtype, **options):
     """The north-star cross (__graft_entry__.py's problem as bench.py calls
     it): cross scene of 4000 points, lane-assigned antipodal waypoints,
-    4 pieces, res 8."""
+    4 pieces, res 8; ``options`` go to the config."""
     from trajopt_tpu_torch import types as tt
     from trajopt_tpu_torch.config import TrajOptConfig
     from trajopt_tpu_torch.ops import splines as sp
     from trajopt_tpu_torch.scenes import generators as gen
     from trajopt_tpu_torch.solver import multi
 
-    cfg = TrajOptConfig(res=8, ks=1e-3, max_planes=16, max_self_planes=4, max_ccd_candidates=16)
+    cfg = TrajOptConfig(res=8, ks=1e-3, max_planes=16, max_self_planes=4, max_ccd_candidates=16,
+                        **options)
     cloud = gen.cross_scene(n_points=FLEET_POINTS, seed=0)
     wps = gen.assign_lanes(gen.cross_waypoints(uavs, FLEET_PIECES), cloud)
     ops = sp.build_spline_ops(FLEET_PIECES, cfg.res)
@@ -912,12 +1128,13 @@ def fleet_pair_diffs(device):
     return geo.minkowski_diff(*driver.robot_pair_hulls(consts, state.spline)).contiguous()
 
 
-def solve_fleet(uavs, coupled, device, dtype):
-    """One cross solve until gnorm < stop; returns (row, consts, final state)."""
+def solve_fleet(uavs, coupled, device, dtype, **options):
+    """One cross solve until gnorm < stop; returns (row, cfg, consts, scene,
+    final state)."""
     from trajopt_tpu_torch import metrics as mt
     from trajopt_tpu_torch.solver import driver
 
-    cfg, ops, cloud, consts, scene, state0 = build_fleet(uavs, device, dtype)
+    cfg, ops, cloud, consts, scene, state0 = build_fleet(uavs, device, dtype, **options)
     t0 = time.perf_counter()
     state, hist = driver.solve_multi(consts, cfg, state0, scene, coupled=coupled,
                                      max_iters=FLEET_MAX_ITERS)
@@ -1050,6 +1267,71 @@ def fleet_phase(device, log):
     check_parity(f"u{SMALL_FLEET} coupled card", small, ref, log)
     check_parity(f"u{SMALL_FLEET} coupled CPU float64", cpu, ref, log)
     return launches, rows, by_shape
+
+
+def optimal_fleet_phase(device, log):
+    """Phase 4's ``optimal_plane`` solves: the 64-robot cross coupled at full
+    width (every robot's full obstacle table, U*P*R*K = 32768 K2 slots an
+    iteration) held to the JAX package's CPU float64 row
+    (`testing.OPTIMAL_PLANE_JAX_ROWS`: converged, iterations within
+    ITER_SLACK, ccd within 2%), obstacle clearance >= offset, pairwise
+    clearance by K2 cross-checked by K5, launches of K1-K4 and the fused
+    kernel (also by call shape), host syncs per steady iteration (<= 9, the
+    default path's count) and the device's idle share; then 4 robots coupled
+    on the card against the port's CPU float64 run.  Returns (launches,
+    launches by shape)."""
+    import torch
+    from trajopt_tpu_torch.ops import _cuda
+    from trajopt_tpu_torch.solver import multi
+    from trajopt_tpu_torch.testing import OPTIMAL_PLANE_JAX_ROWS
+
+    opt = dict(optimal_plane=True)
+    key = f"u{FLEET} coupled optimal_plane"
+    _cuda.reset_launches()
+    row, cfg, consts, scene, state = solve_fleet(FLEET, True, device, torch.float32, **opt)
+    torch.cuda.synchronize()
+    launches, by_shape = {key: dict(_cuda.LAUNCHES)}, {key: shape_counts()}
+    jax_row = OPTIMAL_PLANE_JAX_ROWS[f"u{FLEET} coupled"]
+    log(f"  {key}: iters {row['iters']} (JAX CPU float64 {jax_row['iters']}, C++ with "
+        f"optimal_plane=0 {reference_row('coupled', uavs=FLEET)['iters']}), gnorm {row['gnorm']:.4g}, "
+        f"median {row['median_iter_ms']:.2f} ms/iter, solve {row['solve_s']:.2f} s")
+    log_launches(key, launches[key], by_shape[key], log)
+    for name in SOLVE_KERNELS:
+        check(launches[key][name] > 0, f"{key}: kernel {name} was never launched by the solve")
+    check(jax_row["converged"], f"{key}: the JAX row did not converge")
+    gap = abs(row["iters"] - jax_row["iters"])
+    check(gap <= ITER_SLACK, f"{key}: iterations differ from JAX CPU float64 by {gap}")
+    check_parity(key, row, jax_row, log, against="JAX CPU float64")
+    _cuda.reset_launches()
+    pair_clearance_check(cfg, consts, state, log)
+    torch.cuda.synchronize()
+    launches[f"{key} pair clearance"] = dict(_cuda.LAUNCHES)
+    check(_cuda.LAUNCHES["gjk_fw"] > 0, "K5 was never launched by the clearance cross-check")
+
+    caches = multi.init_multi_caches(cfg, consts, FLEET, device=device, dtype=torch.float32)
+    state1, _, caches = multi.multi_admm_step_cached(consts, cfg, state, scene, True, caches)
+    step = lambda: multi.multi_admm_step_cached(consts, cfg, state1, scene, True, caches)
+    step()
+    syncs = count_syncs(step)
+    log_syncs(f"steady {key}", syncs, log)
+    check(sum(syncs.values()) <= 9, f"{key}: {sum(syncs.values())} host syncs per steady "
+                                    "iteration (the default coupled path makes 9)")
+    busy, wall = device_busy_share(step)
+    log(f"  torch.profiler, 3 steady {key} iterations: device busy {busy / 3:.3f} ms per "
+        f"iteration of {wall / 3:.3f} ms wall, idle share "
+        f"{1.0 - busy / wall if wall > 0 else float('nan'):.3f}")
+
+    small, _, _, _, _ = solve_fleet(SMALL_FLEET, True, device, torch.float32, **opt)
+    cpu, _, _, _, _ = solve_fleet(SMALL_FLEET, True, torch.device("cpu"), torch.float64, **opt)
+    log(f"  u{SMALL_FLEET} coupled optimal_plane: card float32 iters {small['iters']}, CPU float64 "
+        f"iters {cpu['iters']}")
+    check(abs(small["iters"] - cpu["iters"]) <= ITER_SLACK,
+          f"u{SMALL_FLEET} optimal_plane: card and CPU float64 iteration counts differ by "
+          f"{abs(small['iters'] - cpu['iters'])}")
+    check(cpu["converged"], f"u{SMALL_FLEET} optimal_plane: the CPU float64 run did not converge")
+    check_parity(f"u{SMALL_FLEET} coupled optimal_plane card", small, cpu, log,
+                 against="the port's CPU float64")
+    return launches, by_shape
 
 
 # ---------------------------------------------------------------------------
@@ -1251,12 +1533,14 @@ def shape_timings(topk, gjk, fw=(), plain_of=()):
 
 
 def chol_callsite_inputs(device):
-    """(blocks h, right-hand sides b or None) at every call-site shape of
-    K3, K4 and the fused kernel in the single P=4 and the 64-robot solves:
+    """(blocks h, right-hand sides b or None[, gmw]) at every call-site shape
+    of K3, K4 and the fused kernel in the single P=4 and the 64-robot solves:
     the PSD repair's [4,19,19] and [64,4,19,19], the slack Newton step's
     [4,19,19] with b [4,19] and [256,19,19] with b [256,19], the KKT's
     [33,33] and [64,33,33] with b [.,33,2] (factor and solve) and b [.,33]
-    (refinement).  Positive-definite blocks, made from a seed."""
+    (refinement).  Positive-definite blocks, made from a seed.  Last, the
+    ``eigh`` slack step's fused launches with ``gmw=False`` at [4,19,19]
+    and [256,19,19] (`eigh_blocks`)."""
     import numpy as np
     import torch
 
@@ -1272,7 +1556,8 @@ def chol_callsite_inputs(device):
 
     h4, h256, k1, k64 = spd(4, 19, 19), spd(256, 19, 19), spd(33, 33), spd(FLEET, 33, 33)
     return [(h4, None), (spd(FLEET, 4, 19, 19), None), (h4, vec(4, 19)), (h256, vec(256, 19)),
-            (k1, vec(33, 2)), (k64, vec(FLEET, 33, 2)), (k1, vec(33)), (k64, vec(FLEET, 33))]
+            (k1, vec(33, 2)), (k64, vec(FLEET, 33, 2)), (k1, vec(33)), (k64, vec(FLEET, 33))] + [
+        (h, b, False) for _, h, b in eigh_blocks(device, 5)]
 
 
 def _digest(*tensors):
@@ -1311,8 +1596,9 @@ def chol_shape_timings(inputs, floor=None, library=True):
     (`torch.linalg.cholesky_ex`) and K4 (`torch.cholesky_solve`; MAGMA, not
     capturable), the bound, the latency floor (`latency_floor`) and a digest
     of the outputs, by which two checkouts' kernels are compared bit for
-    bit.  Only `mod_chol(h)`, `chol_solve(l, b)` and `factor_solve(h, b)` are
-    called, so ``--time-shapes`` runs it on another checkout's port."""
+    bit.  Only `mod_chol(h)`, `chol_solve(l, b)` and `factor_solve(h, b[,
+    gmw=False])` are called, so ``--time-shapes`` runs it on another
+    checkout's port."""
     import torch
     from trajopt_tpu_torch.ops import cuda_chol
 
@@ -1334,10 +1620,18 @@ def chol_shape_timings(inputs, floor=None, library=True):
         return r
 
     rows, factored = [], set()
-    for h, b in inputs:
+    for h, b, *gmw in inputs:
         m = h.shape[-1]
         n = h.numel() // (m * m)
         flops3 = n * (2 * m ** 3 / 3 + 2 * m ** 2)
+        if gmw and not gmw[0]:
+            k = 1 if b.ndim == h.ndim - 1 else b.shape[-1]
+            rows.append(row("factor_solve", f"{dims(h)} b={dims(b)} gmw=False", m,
+                            lambda h=h, b=b: cuda_chol.factor_solve(h, b, gmw=False), None,
+                            2 * h.numel() * 4 + n * m * 4 + 2 * b.numel() * 4,
+                            flops3 + n * k * 2 * m ** 2, m, 2 * m,
+                            cuda_chol.factor_solve(h, b, gmw=False)))
+            continue
         l, e = cuda_chol.mod_chol(h)
         if id(h) not in factored:
             factored.add(id(h))
@@ -1588,17 +1882,24 @@ def main() -> int:
         check_parity(f"p{pieces}", row, reference_row("single", pieces=pieces), log)
         if pieces == SLICE_PIECES[0]:
             card_iters = row["iters"]
+            card_rows = {"default": row}
     cpu = solve_case(SLICE_PIECES[0], torch.device("cpu"), torch.float64)
     log(f"  p{SLICE_PIECES[0]} CPU float64: iters {cpu['iters']}, gnorm {cpu['gnorm']:.4g}, "
         f"ccd_time {cpu['ccd_time']:.4f}, ccd_len {cpu['ccd_len']:.4f}")
     gap = abs(cpu["iters"] - card_iters)
     check(gap <= ITER_SLACK, f"card and CPU float64 iteration counts differ by {gap}")
     log_syncs(f"steady p{SLICE_PIECES[0]}", single_steady_syncs(SLICE_PIECES[0], device), log)
+    option_launches, option_shapes = single_options_phase(device, card_rows, log)
+    launches.update(option_launches)
+    by_shape.update(option_shapes)
     phase_done(3)
 
     # -- phase 4 ------------------------------------------------------------
     log(f"== phase 4: {FLEET}-robot cross, coupled and decoupled (float32, on the card)")
     fleet_launches, _, fleet_shapes = fleet_phase(device, log)
+    launches.update(fleet_launches)
+    by_shape.update(fleet_shapes)
+    fleet_launches, fleet_shapes = optimal_fleet_phase(device, log)
     launches.update(fleet_launches)
     by_shape.update(fleet_shapes)
     phase_done(4)

@@ -145,8 +145,41 @@ def test_piece_grads_and_hessians_match_jax(grad_mode):
 
 
 def test_psd_methods_other_than_gmw_are_refused():
+    """Of the methods other than "gmw", "eigh" is ported; "ladder" (reached
+    from no solver path of the JAX package) is refused."""
     with pytest.raises(NotImplementedError, match="psd_method"):
-        gr.apply_psd_repair(TCFG.replace(psd_method="eigh"), torch.eye(19, **F64)[None])
+        gr.apply_psd_repair(TCFG.replace(psd_method="ladder"), torch.eye(19, **F64)[None])
+
+
+def _psd_blocks(kind, seed=7):
+    """[6,19,19] symmetric blocks: indefinite, positive definite, or with
+    a NaN or an inf entry in some blocks (the Gershgorin fallback)."""
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(6, 19, 19))
+    h = 0.5 * (a + a.transpose(0, 2, 1))
+    if kind == "pd":
+        h = a @ a.transpose(0, 2, 1) + 0.1 * np.eye(19)
+    elif kind == "nonfinite":
+        h[1, 3, 3] = np.nan
+        h[2, 4, 7] = h[2, 7, 4] = np.inf
+        h[4, 0, 5] = h[4, 5, 0] = np.nan
+    return h
+
+
+@pytest.mark.parametrize("kind", ["indefinite", "pd", "nonfinite"])
+def test_psd_repair_matches_jax(kind):
+    """The eigenvalue shift of ``psd_method="eigh"`` against JAX's, rtol
+    1e-10 (NaN where JAX has NaN)."""
+    h = _psd_blocks(kind)
+    want = np.asarray(jgr.psd_repair(jnp.asarray(h)))
+    got = gr.psd_repair(torch.tensor(h))
+    scale = float(np.abs(want[np.isfinite(want)]).max())
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-10, atol=1e-10 * scale)
+    assert gr.apply_psd_repair(TCFG.replace(psd_method="eigh"), torch.tensor(h)).shape == h.shape
+    if kind == "indefinite":
+        assert float(torch.linalg.eigvalsh(got).min()) > 0.0099
+    if kind == "pd":
+        np.testing.assert_array_equal(got.numpy(), h)
 
 
 @pytest.mark.parametrize("pieces", [4, 8])
@@ -171,6 +204,38 @@ def test_topk_candidates_match_jax(coarse_k):
     assert bool(got.mask.any()) and not bool(got.mask.all())
     _close(bp.coarse_overflow(hull, scene, 0.8, 16),
            jbp.coarse_overflow(jen.seg_cps(jc, js.spline), jscene, 0.8, 16))
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("path", ["two_level", "fleet"])
+def test_broad_phase_ids_exact_above_2_to_24(path):
+    """The port gathers the coarse slots' cloud ids as integers
+    (`broadphase.topk_candidates`, `fleet_candidates`), where the reference
+    maps them through a one-hot contraction in the spline dtype, exact in
+    float32 only below 2^24 points.  A float32 cloud of 2^24 + 4096 points,
+    the far ones first and the in-radius ones at ids above 2^24: every
+    returned id is the brute-force one, odd ids included.  Slow: the cloud
+    alone is 200 MB and each row of the coarse selection 2^24 long."""
+    n_far, n_near = 2 ** 24, 4096
+    rng = np.random.default_rng(24)
+    near = rng.uniform(-0.6, 0.6, size=(n_near, 3))
+    cloud = np.concatenate([np.full((n_far, 3), 1e3) + rng.uniform(0, 1, size=(n_far, 3)),
+                            near]).astype(np.float32)
+    scene = tt.make_scene(cloud, device="cpu", dtype=torch.float32)
+    hull = torch.as_tensor(rng.uniform(-0.2, 0.2, size=(1, 2, 2, 6, 3)), dtype=torch.float32)
+    radius, k = 0.3, 16
+    if path == "two_level":
+        cand = bp.topk_candidates(hull, scene, radius, k, coarse_k=64)
+    else:
+        cand, _ = bp.fleet_candidates(hull, scene, radius, k, coarse_k=64, piece_budget=2)
+    lo, hi = bp.hull_aabbs(hull)
+    d2 = bp.aabb_point_dist2(lo.double(), hi.double(),
+                             torch.as_tensor(cloud[n_far:], dtype=torch.float64))  # [1,P,R,n_near]
+    want = torch.sort(d2, dim=-1, stable=True).indices[..., :k] + n_far
+    live = cand.mask
+    assert bool(live.any())
+    assert torch.equal(cand.idx[live], want[live])
+    assert bool((cand.idx[live] > n_far).all()) and bool((cand.idx[live] % 2 == 1).any())
 
 
 _jax_max_step = jax.jit(jccd.obstacle_max_step_direct, static_argnums=(4, 5, 6, 7, 8, 9))

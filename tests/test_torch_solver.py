@@ -94,14 +94,72 @@ def test_solve_matches_jax(fixture):
 
 
 def test_unported_options_raise(fixture):
+    """What the single-robot path still refuses: ``psd_method="ladder"``."""
     cfg, ops, wp, cloud, _, _, _ = fixture
     cfg = port_cfg(cfg)
-    args = (tt.device_consts(ops, **F64), cfg, tt.init_state(ops, wp, 20.0, **F64),
-            tt.make_scene(cloud, **F64))
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        driver.solve(*args, max_iters=1, checkpointer=object())
-    with pytest.raises(NotImplementedError, match="optimal_plane"):
-        driver.solve(args[0], cfg.replace(optimal_plane=True), *args[2:], max_iters=1)
+    args = (tt.device_consts(ops, **F64), cfg.replace(psd_method="ladder"),
+            tt.init_state(ops, wp, 20.0, **F64), tt.make_scene(cloud, **F64))
+    with pytest.raises(NotImplementedError, match="ladder"):
+        driver.solve(*args, max_iters=1)
+    with pytest.raises(NotImplementedError, match="ladder"):
+        admm.admm_step(*args)
+
+
+def test_three_admm_steps_with_eigh_match_jax(fixture):
+    """``psd_method="eigh"`` (the reference's eigenvalue shift, then a plain
+    Cholesky solve of the slack step): three steps from the first iterate
+    with live planes, rtol 1e-8."""
+    cfg, ops, wp, cloud, (jc, jscene, jstate), _, jhist = fixture
+    k = next(h["iter"] for h in jhist if h["n_planes"] > 0)
+    jstate, _ = jdriver.solve(jc, cfg, jstate, jscene, max_iters=k, validate_init=False)
+    cfg = cfg.replace(psd_method="eigh")
+    consts, scene = tt.from_numpy(jc, **F64), tt.from_numpy(jscene, **F64)
+    state = tt.from_numpy(jstate, **F64)
+    for _ in range(3):
+        jstate, jdiag = jadmm.admm_step(jc, cfg, jstate, jscene)
+        state, diag = admm.admm_step(consts, port_cfg(cfg), state, scene)
+        for got, want in zip(tt.to_numpy(state), jstate):
+            _close(got, want, 1e-8)
+        for got, want in zip(tt.to_numpy(diag), jdiag):
+            _close(got, want, 1e-8)
+    assert int(diag.n_planes) > 0
+
+
+def test_steps_restore_the_callers_tf32_flags():
+    """Each step turns TF32 off for itself only (the reference scopes its
+    "highest" matmul precision to the step): flags the caller set to True
+    are True again after one step of each kind."""
+    from trajopt_tpu_torch.solver import multi
+
+    cfg = tconfig.TrajOptConfig(res=2, max_planes=4, max_self_planes=2, max_ccd_candidates=4,
+                                ks=1e-3, optimal_plane=True)
+    ops = sp.build_spline_ops(2, cfg.res)
+    kw = dict(device="cpu", dtype=torch.float32)
+    consts = tt.device_consts(ops, **kw)
+    scene = tt.make_scene(gen.sphere_scene(n_points=100, radius=1.0, seed=1), **kw)
+    wp = np.array([[-3.0, 0, 0], [0, 1.8, 0], [3.0, 0, 0]])
+    state = tt.init_state(ops, wp, 20.0, **kw)
+    fleet = multi.init_multi_state(ops, [wp, wp + np.array([0.0, 0.0, 0.26])], 20.0, **kw)
+    steps = {
+        "admm_step": lambda: admm.admm_step(consts, cfg, state, scene),
+        "admm_step_cached": lambda: admm.admm_step_cached(
+            consts, cfg, state, scene,
+            tt.empty_plane_cache(consts.piece_num, consts.res, cfg.max_planes, **kw)),
+        "multi_admm_step": lambda: multi.multi_admm_step(consts, cfg, fleet, scene, True),
+        "multi_admm_step_cached": lambda: multi.multi_admm_step_cached(
+            consts, cfg, fleet, scene, False, multi.init_multi_caches(cfg, consts, 2, **kw)),
+    }
+    saved = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+    try:
+        for name, step in steps.items():
+            torch.backends.cuda.matmul.allow_tf32 = True
+            torch.backends.cudnn.allow_tf32 = True
+            step()
+            assert torch.backends.cuda.matmul.allow_tf32, name
+            assert torch.backends.cudnn.allow_tf32, name
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
 
 
 def test_port_runs_without_jax():
@@ -118,6 +176,7 @@ from trajopt_tpu_torch.config import TrajOptConfig
 from trajopt_tpu_torch.ops import splines as sp
 from trajopt_tpu_torch.scenes import generators as gen
 from trajopt_tpu_torch.solver import admm, driver, multi
+from trajopt_tpu_torch.runtime import checkpoint
 cfg = TrajOptConfig(res=4, max_planes=16, max_ccd_candidates=16)
 cloud = gen.sphere_scene(n_points=200, radius=1.0, seed=1)
 wp = np.array([[-3.0, 0, 0], [0, 1.8, 0], [3.0, 0, 0]])

@@ -1,8 +1,12 @@
 """Convex collision geometry: exact simplex GJK, Frank-Wolfe GJK, the
-robot-pair plane offset and the k-DOP axes.
+robot-pair plane offset, the barrier-optimal plane refinements of
+``optimal_plane=True`` and the k-DOP axes.
 
 Port of the parts of `trajopt_tpu/ops/geometry.py` that the single- and
-multi-robot solves run.  `origin_simplex_dist` is the plain version of
+multi-robot solves run.  The refinements (`refine_plane`,
+`refine_pair_plane`) are batched over a leading axis and take their 2x2
+Newton systems in closed form where the reference differentiates the
+energy with autodiff.  `origin_simplex_dist` is the plain version of
 kernel K2 and `gjk_fw_plain` that of kernel K5 (`ops/cuda_gjk.py`);
 `batched_origin_dist` is the solver's entry point and goes through K2's
 wrapper.
@@ -305,6 +309,147 @@ def optimal_d(hull_a, hull_b, c, d, offset: float, margin: float, iters: int) ->
             step = torch.where(feasible(dv + step), step, 0.5 * step)
         dv = torch.where(feasible(dv + step), dv + step, dv)
     return torch.where(feasible(d), dv, d)
+
+
+def _side_energy(dist: torch.Tensor, margin: float) -> torch.Tensor:
+    """Barrier energy of one side's signed distances [..., n] -> [...]: the
+    clamped log barrier inside the band plus the reference's smooth penalty
+    ``1e3 (margin - dist)^2`` on infeasible points."""
+    act = (dist > 0) & (dist < margin)
+    ds = torch.where(act, dist, margin)
+    e = torch.where(act, -((ds - margin) ** 2) * torch.log(ds / margin), 0.0)
+    e_bad = torch.where(dist <= 0, (margin - dist) ** 2 * 1e3, 0.0)
+    return (e + e_bad).sum(-1)
+
+
+def _side_derivs(dist: torch.Tensor, margin: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Elementwise first and second derivatives of `_side_energy`'s terms."""
+    from .gradients import _barrier_d12
+
+    e1, e2 = _barrier_d12(dist, margin, (dist > 0) & (dist < margin))
+    bad = dist <= 0
+    return (torch.where(bad, -2e3 * (margin - dist), e1),
+            torch.where(bad, torch.full_like(dist, 2e3), e2))
+
+
+def _rotation_frame(c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Tangent frame (c0, c1) of unit normals c [B,3]: c0 = (c_y, -c_x, 0)
+    normalized (the x axis when c ~ +-z), c1 = c0 x c."""
+    c0 = torch.stack([c[:, 1], -c[:, 0], torch.zeros_like(c[:, 0])], dim=-1)
+    n0 = torch.sqrt(torch.clamp((c0 * c0).sum(-1), min=_EPS))
+    x_axis = torch.zeros_like(c)
+    x_axis[:, 0] = 1.0
+    c0 = torch.where((n0 > 1e-6)[:, None], c0 / n0[:, None], x_axis)
+    c1 = torch.linalg.cross(c0, c, dim=-1)
+    c1 = c1 / torch.sqrt(torch.clamp((c1 * c1).sum(-1), min=_EPS))[:, None]
+    return c0, c1
+
+
+def _rotate(c, c0, c1, th, ph):
+    """cos(th) c + sin(th) (cos(ph) c0 + sin(ph) c1), th/ph [B, L] -> [B, L, 3]."""
+    th, ph = th[..., None], ph[..., None]
+    return (torch.cos(th) * c[:, None]
+            + torch.sin(th) * (torch.cos(ph) * c0[:, None] + torch.sin(ph) * c1[:, None]))
+
+
+def _rotation_step(c, grad_e, hess_e, energy, ladder: int):
+    """One damped Newton step on the energy of a unit normal in local
+    rotation coordinates (theta, phi), batched over [B].
+
+    ``grad_e`` [B,3] and ``hess_e`` [B,3,3] are the energy's derivatives in
+    c; ``energy(cv [B,L,3]) -> [B,L]``.  At (theta, phi) = 0 the rotation
+    has dc/dtheta = c0, dc/dphi = 0, d2c/dtheta2 = -c, d2c/dtheta dphi = c1
+    and d2c/dphi2 = 0, so the local gradient is [grad.c0, 0] and the
+    Hessian [[c0' H c0 - grad.c, grad.c1], [grad.c1, 0]] (+ 1e-2 I), the
+    values the reference's autodiff gives.  The Armijo ladder step0 * 0.8^k
+    (step0 clamps the largest angle below pi/2) takes its first accepted
+    rung, the last one unconditionally.  Returns (trial normal [B,3], e0
+    [B], w [B]) with w = -g.direction."""
+    c0, c1 = _rotation_frame(c)
+    g0 = (grad_e * c0).sum(-1)
+    h00 = torch.einsum("bi,bij,bj->b", c0, hess_e, c0) - (grad_e * c).sum(-1) + 1e-2
+    h01 = (grad_e * c1).sum(-1)
+    h11 = 1e-2
+    det = h00 * h11 - h01 * h01
+    det = torch.where(det.abs() > _EPS, det, 1.0)
+    d0 = -(h11 / det * g0)
+    d1 = -(-h01 / det * g0)
+    big = torch.maximum(d0.abs(), d1.abs())
+    step0 = torch.where(big > 0.5 * np.pi, 0.95 * 0.5 * np.pi / big, 1.0)
+    rungs = 0.8 ** torch.arange(ladder, dtype=c.dtype, device=c.device)
+    steps = step0[:, None] * rungs                                  # [B,L]
+    w = -(g0 * d0)
+    e0 = energy(c[:, None])[:, 0]
+    es = energy(_rotate(c, c0, c1, steps * d0[:, None], steps * d1[:, None]))
+    ok = e0[:, None] - 1e-4 * w[:, None] * steps >= es
+    ok[:, -1] = True
+    s = steps.gather(1, torch.argmax(ok.to(torch.uint8), dim=1, keepdim=True))   # [B,1]
+    cc = _rotate(c, c0, c1, s * d0[:, None], s * d1[:, None])[:, 0]
+    cc = cc / torch.sqrt(torch.clamp((cc * cc).sum(-1), min=_EPS))[:, None]
+    return cc, e0, w
+
+
+def refine_plane(hull, point, c, offset: float, margin: float, iters: int = 8,
+                 ladder: int = 12) -> tuple[torch.Tensor, torch.Tensor]:
+    """Barrier-optimal obstacle plane refinement (`Optimal_plane::optimal_cd`,
+    Optimal_plane.h:160-293), batched: hulls [B,n,3], obstacle points [B,3],
+    unit normals c [B,3].  Damped Newton on the hull-side barrier energy in
+    the rotation coordinates of the normal (`_rotation_step`), ``d``
+    eliminated as ``-c.point - offset``; a step is kept only if it lowers
+    the energy along a descent direction.  Fixed counts: ``iters`` Newton
+    steps of a ``ladder``-rung line search.  Returns (c [B,3], d [B])."""
+    def dists(cv):                                                  # cv [B,L,3]
+        return (torch.einsum("bnd,bld->bln", hull, cv)
+                - torch.einsum("bld,bd->bl", cv, point)[..., None] - offset)
+
+    def energy(cv):
+        return _side_energy(dists(cv), margin)
+
+    arm = hull - point[:, None]                                     # d dist / dc
+    for _ in range(iters):
+        e1, e2 = _side_derivs(dists(c[:, None])[:, 0], margin)      # [B,n]
+        grad_e = torch.einsum("bn,bnd->bd", e1, arm)
+        hess_e = torch.einsum("bn,bnd,bne->bde", e2, arm, arm)
+        cc, e0, w = _rotation_step(c, grad_e, hess_e, energy, ladder)
+        better = (energy(cc[:, None])[:, 0] <= e0) & (w > 0)
+        c = torch.where(better[:, None], cc, c)
+    return c, -(c * point).sum(-1) - offset
+
+
+def refine_pair_plane(hull_a, hull_b, c, d, offset: float, margin: float, iters: int = 6,
+                      ladder: int = 10) -> tuple[torch.Tensor, torch.Tensor]:
+    """Barrier-optimal robot-pair plane refinement
+    (`Optimal_plane::self_optimal_cd`, Optimal_plane.h:620-773), batched:
+    hulls [B,n,3] on the positive (A) and negative (B) side, unit normals c
+    [B,3], midplane offsets d [B].  Damped Newton on the symmetric two-sided
+    barrier in the rotation coordinates of the normal at fixed ``d``; each
+    trial normal then re-optimizes ``d`` from the support midpoint by four
+    steps of `optimal_d`, and is kept only if that lowers the energy along a
+    descent direction.  Returns (c [B,3], d [B])."""
+    def dists(cv, dv):                                              # cv [B,L,3], dv [B]
+        da = torch.einsum("bnd,bld->bln", hull_a, cv) + dv[:, None, None] - 0.5 * offset
+        db = -torch.einsum("bnd,bld->bln", hull_b, cv) - dv[:, None, None] - 0.5 * offset
+        return da, db
+
+    def energy(cv, dv):
+        da, db = dists(cv, dv)
+        return _side_energy(da, margin) + _side_energy(db, margin)
+
+    for _ in range(iters):
+        da, db = dists(c[:, None], d)
+        (a1, a2), (b1, b2) = _side_derivs(da[:, 0], margin), _side_derivs(db[:, 0], margin)
+        grad_e = (torch.einsum("bn,bnd->bd", a1, hull_a)
+                  - torch.einsum("bn,bnd->bd", b1, hull_b))
+        hess_e = (torch.einsum("bn,bnd,bne->bde", a2, hull_a, hull_a)
+                  + torch.einsum("bn,bnd,bne->bde", b2, hull_b, hull_b))
+        cc, e0, w = _rotation_step(c, grad_e, hess_e, lambda cv: energy(cv, d), ladder)
+        mid = 0.5 * ((-torch.einsum("bnd,bd->bn", hull_b, cc)).amin(-1)
+                     + (-torch.einsum("bnd,bd->bn", hull_a, cc)).amax(-1))
+        d_new = optimal_d(hull_a, hull_b, cc, mid, offset, margin, 4)
+        better = (energy(cc[:, None], d_new)[:, 0] <= e0) & (w > 0)
+        c = torch.where(better[:, None], cc, c)
+        d = torch.where(better, d_new, d)
+    return c, d
 
 
 def kdop_axes() -> np.ndarray:

@@ -5,8 +5,9 @@ Port of `trajopt_tpu/ops/gradients.py`.  Each piece's 19 local variables
 (18 control-point coordinates + 1 time) get a closed-form gradient/Hessian
 (`analytic_spline_gh`, the default) or an autodiff one
 (``torch.func.vmap(jacfwd(grad))``, ``grad_mode="autodiff"``).  PSD repair
-is the GMW modified Cholesky (kernel K3 on the card); the other
-``psd_method`` values of the JAX package are not ported.
+is the GMW modified Cholesky (kernel K3 on the card, the default) or the
+reference's eigenvalue shift (``psd_method="eigh"``); the JAX package's
+``"ladder"`` repair, reached from no solver path there, is not ported.
 """
 
 from __future__ import annotations
@@ -304,10 +305,35 @@ def piece_grads_and_hessians(
     return g, apply_psd_repair(cfg, h)
 
 
-def apply_psd_repair(cfg: TrajOptConfig, h: torch.Tensor) -> torch.Tensor:
-    """``cfg.psd_method``: only "gmw" is ported."""
-    if cfg.psd_method != "gmw":
+def psd_repair(h: torch.Tensor) -> torch.Tensor:
+    """Batched spectrum shift: ``h + (0.01 - w_min) I`` where the least
+    eigenvalue w_min is negative (the reference's repair on a failed
+    Cholesky, Gradient_admm.h:44-53).  A block whose eigenvalues come out
+    non-finite is shifted by its Gershgorin bound instead, which can only
+    over-damp.  A block holding a non-finite entry goes to `eigvalsh` as the
+    identity (on the card a non-finite block would make the solver raise)
+    and takes the Gershgorin bound, as its NaN eigenvalues do in the
+    reference.  On the card `eigvalsh` waits for its error check: one host
+    sync a call."""
+    eye = torch.eye(h.shape[-1], dtype=h.dtype, device=h.device)
+    finite = torch.isfinite(h).all(-1).all(-1)
+    wmin = torch.linalg.eigvalsh(torch.where(finite[..., None, None], h, eye))[..., 0]
+    diag = torch.diagonal(h, dim1=-2, dim2=-1)
+    gersh = (diag - (h.abs().sum(-1) - diag.abs())).amin(-1)
+    wmin = torch.where(finite & torch.isfinite(wmin), wmin, gersh)
+    shift = torch.where(wmin < 0, -wmin + 0.01, 0.0)
+    return h + shift[..., None, None] * eye
+
+
+def check_psd_method(cfg: TrajOptConfig) -> None:
+    """``psd_method`` is "gmw" or "eigh"; "ladder" is refused."""
+    if cfg.psd_method not in ("gmw", "eigh"):
         raise NotImplementedError(
-            f"psd_method={cfg.psd_method!r} is not ported to torch; use 'gmw'"
+            f"psd_method={cfg.psd_method!r} is not ported to torch; use 'gmw' or 'eigh'"
         )
-    return psd_repair_gmw(h)
+
+
+def apply_psd_repair(cfg: TrajOptConfig, h: torch.Tensor) -> torch.Tensor:
+    """Dispatch on ``cfg.psd_method``: "gmw" (default) or "eigh"."""
+    check_psd_method(cfg)
+    return psd_repair(h) if cfg.psd_method == "eigh" else psd_repair_gmw(h)

@@ -1,16 +1,18 @@
 """Single-robot consensus-ADMM iteration.
 
-Port of `trajopt_tpu/solver/admm.py` (the path without the plane cache).
-One `admm_step` runs the reference's three phases: separating-plane
-generation, the spline Newton step with a CCD-clamped Armijo line search,
-and the per-piece slack Newton step with dual ascent.  Each `lax.cond` of
-the JAX step is a Python branch here, i.e. one device-to-host sync:
-`armijo_spline` (step0 accepted?), each further stage of a staged ladder,
-and the two gates inside the CCD.
+Port of `trajopt_tpu/solver/admm.py`.  One `admm_step` runs the
+reference's three phases: separating-plane generation, the spline Newton
+step with a CCD-clamped Armijo line search, and the per-piece slack Newton
+step with dual ascent; `admm_step_cached` also threads the persistent plane
+cache of ``optimal_plane=True``.  Each `lax.cond` of the JAX step is a
+Python branch here, i.e. one device-to-host sync: `armijo_spline` (step0
+accepted?), each further stage of a staged ladder, and the two gates inside
+the CCD.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -25,10 +27,28 @@ from ..ops import energies as en
 from ..ops import geometry as geo
 from ..ops import gradients as gr
 from ..ops import kkt
-from ..types import Planes, Scene, SolverState, SplineConsts, StepDiag
+from ..types import PlaneCache, Planes, Scene, SolverState, SplineConsts, StepDiag
 
 _ARMIJO_C = 1e-4   # Optimization3D_admm.h:537
 _SHRINK = 0.8      # Optimization3D_admm.h:542 / Step.h:97
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Full-float32 matmuls and convolutions (no TF32) inside the block, the
+    caller's settings restored after it, as the reference scopes
+    ``jax.default_matmul_precision("highest")`` to its step: the KKT blocks
+    reach condition ~1e6 and reduced-precision passes give NaN Cholesky
+    pivots."""
+    precision = torch.get_float32_matmul_precision()
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(precision)
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
 
 
 # ---------------------------------------------------------------------------
@@ -114,21 +134,53 @@ def separate_planes_batch(
 
 
 def separate_planes(
-    consts: SplineConsts, cfg: TrajOptConfig, spline: torch.Tensor, scene: Scene
-) -> tuple[Planes, torch.Tensor]:
-    """Fixed-K separating-plane table for every subdivided segment, and the
-    budget-overflow flag (`_planes_from_candidates`)."""
-    if cfg.optimal_plane:
-        raise NotImplementedError("optimal_plane=True is not ported to torch yet")
-    hull = en.seg_cps(consts, spline)                       # [P,R,n,3]
+    consts: SplineConsts, cfg: TrajOptConfig, spline: torch.Tensor, scene: Scene,
+    cache: PlaneCache | None = None,
+):
+    """Fixed-K separating-plane table for every subdivided segment and the
+    budget-overflow flag; ``spline`` [..., T, 3] may carry leading robot
+    axes.
+
+    The default path compacts the GJK batch (`_planes_from_candidates`).
+    With ``cfg.optimal_plane`` or a ``cache`` (a `types.PlaneCache` with the
+    spline's leading axes) one GJK batch (K2) covers every (segment,
+    candidate) slot, so that cache slots align with the candidate ids and
+    nothing overflows; ``cfg.optimal_plane`` then refines every plane
+    (`geometry.refine_plane`, kept where finite), warm-started from the
+    cached normal where the slot's obstacle id was planed last iteration
+    (the reference's persistent planes, Optimization3D_admm.h:126-193).
+    Returns (planes, overflow) without a cache, else (planes, overflow,
+    new_cache)."""
+    hull = en.seg_cps(consts, spline)                       # [...,P,R,n,3]
     cand = bp.topk_candidates(hull, scene, cfg.offset + cfg.margin, cfg.max_planes,
                               coarse_k=cfg.broadphase_coarse_k)
-    c, d, ok, overflow = _planes_from_candidates(
-        cfg, hull.reshape((-1,) + hull.shape[-2:]), scene.points, cand
-    )
-    shape = cand.mask.shape                                 # [P,R,K]
-    return Planes(c=c.reshape(shape + (3,)), d=d.reshape(shape),
-                  mask=ok.reshape(shape)), overflow
+    shape = cand.mask.shape                                 # [...,P,R,K]
+    n = hull.shape[-2]
+    if cache is None and not cfg.optimal_plane:
+        c, d, ok, overflow = _planes_from_candidates(cfg, hull.reshape(-1, n, 3),
+                                                     scene.points, cand)
+        return Planes(c=c.reshape(shape + (3,)), d=d.reshape(shape),
+                      mask=ok.reshape(shape)), overflow
+    hull_f = torch.broadcast_to(hull[..., None, :, :], shape + (n, 3)).reshape(-1, n, 3)
+    pts_f = scene.points[cand.idx.reshape(-1)]
+    c, d, valid = _fit_obstacle_planes(cfg, hull_f, pts_f)
+    if cfg.optimal_plane:
+        if cache is not None:
+            match = cand.idx[..., :, None] == cache.obs_id[..., None, :]   # [...,K,K]
+            hit = match.any(-1)
+            slot = torch.argmax(match.to(torch.uint8), dim=-1)            # first match
+            warm = torch.gather(cache.c, -2, slot[..., None].expand(shape + (3,)))
+            c = torch.where(hit.reshape(-1)[:, None], warm.reshape(-1, 3), c)
+        c2, d2 = geo.refine_plane(hull_f, pts_f, c, cfg.offset, cfg.margin)
+        good = torch.isfinite(c2).all(-1) & torch.isfinite(d2)
+        c = torch.where(good[:, None], c2, c)
+        d = torch.where(good, d2, d)
+    mask = cand.mask & valid.reshape(shape)
+    planes = Planes(c=c.reshape(shape + (3,)), d=d.reshape(shape), mask=mask)
+    overflow = torch.zeros((), dtype=torch.bool, device=spline.device)
+    if cache is None:
+        return planes, overflow
+    return planes, overflow, PlaneCache(obs_id=torch.where(mask, cand.idx, -1), c=planes.c)
 
 
 # ---------------------------------------------------------------------------
@@ -297,10 +349,7 @@ def slack_update(
     A ladder stage is evaluated when any piece of any robot still lacks an
     accepted rung, where the reference's vmapped `lax.cond` selects per
     robot; the first accepted rung of every piece is the same either way."""
-    if cfg.psd_method != "gmw":
-        raise NotImplementedError(
-            f"psd_method={cfg.psd_method!r} is not ported to torch; use 'gmw'"
-        )
+    gr.check_psd_method(cfg)
     p_num = consts.piece_num
     lead = state.spline.shape[:-2]
     n_pc = state.t_slack.numel()                     # robots x pieces
@@ -326,8 +375,13 @@ def slack_update(
     g = g * m
     eye = torch.eye(gr.N_LOC, dtype=h.dtype, device=h.device)
     h = torch.where((m[:, :, None] * m[:, None, :]) > 0, h, eye[None])
-    # repair + factor + solve in one launch on the card; the factor is not kept
-    d = -cuda_chol.factor_solve(h.contiguous(), g.contiguous(), want_l=False)[2]
+    if cfg.psd_method == "eigh":
+        # spectrum shift to PD, then the plain Cholesky factor and solve in
+        # one launch (the reference's `smallchol.solve_pd`)
+        h = gr.psd_repair(h)
+    # repair (GMW) + factor + solve in one launch on the card; the factor is not kept
+    d = -cuda_chol.factor_solve(h.contiguous(), g.contiguous(), gmw=cfg.psd_method == "gmw",
+                                want_l=False)[2]
     d = d * m
     wolfe = -torch.sum(d * g, dim=1)
     # NaN-proof steepest-descent fallback per piece
@@ -381,11 +435,25 @@ def admm_step(
     consts: SplineConsts, cfg: TrajOptConfig, state: SolverState, scene: Scene
 ) -> tuple[SolverState, StepDiag]:
     """One full ADMM iteration (Optimization3D_admm::optimization)."""
-    # Full-f32 matmuls are required: the KKT blocks reach condition ~1e6 and
-    # reduced-precision passes give NaN Cholesky pivots.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    planes, overflow = separate_planes(consts, cfg, state.spline, scene)
+    with full_f32_matmul():
+        return _admm_step(consts, cfg, state, scene)
+
+
+def admm_step_cached(
+    consts: SplineConsts, cfg: TrajOptConfig, state: SolverState, scene: Scene,
+    cache: PlaneCache,
+) -> tuple[SolverState, StepDiag, PlaneCache]:
+    """`admm_step` threading the persistent plane cache (``optimal_plane=True``
+    semantics, CCDUtils.h:64-70)."""
+    with full_f32_matmul():
+        return _admm_step(consts, cfg, state, scene, cache)
+
+
+def _admm_step(consts, cfg, state, scene, cache=None):
+    if cache is None:
+        planes, overflow = separate_planes(consts, cfg, state.spline, scene)
+    else:
+        planes, overflow, cache = separate_planes(consts, cfg, state.spline, scene, cache)
     sd = spline_direction(consts, cfg, state, planes)
     step_ccd = ccd_step(consts, cfg, state.spline, sd.direction, scene)
     spline, piece_time, step = armijo_spline(consts, cfg, state, planes, sd, step_ccd)
@@ -402,4 +470,4 @@ def admm_step(
         infeasible=ev.infeasible,
         plane_overflow=overflow,
     )
-    return state, diag
+    return (state, diag) if cache is None else (state, diag, cache)

@@ -1,7 +1,8 @@
 """Outer ADMM loop drivers (host-stepped).
 
 Port of `trajopt_tpu/solver/driver.py::solve` and `solve_multi` and their
-start-up checks.
+start-up checks, with the persistent plane caches of ``optimal_plane=True``
+and checkpoint / resume (`runtime.checkpoint.CheckpointManager`).
 Convergence gate: ``iter > 1 and gnorm < stop``, exactly as the reference
 (Main/admmPathPlanning3D.cpp:504).  Each iteration reads its diagnostics to
 the host once, which also ends the iteration's device work before
@@ -22,7 +23,7 @@ from ..ops import broadphase as bp
 from ..ops import cuda_gjk
 from ..ops import energies as en
 from ..ops import geometry as geo
-from ..types import Scene, SolverState, SplineConsts, StepDiag
+from ..types import Scene, SolverState, SplineConsts, StepDiag, empty_plane_cache
 from . import admm, multi
 
 
@@ -134,11 +135,13 @@ def solve(
     checkpointer=None,
 ) -> tuple[SolverState, list[dict]]:
     """Host-driven ADMM loop with per-iteration metrics (the same history
-    keys as the JAX driver)."""
-    if checkpointer is not None:
-        raise NotImplementedError("checkpointing is not ported to torch yet")
-    if cfg.optimal_plane:
-        raise NotImplementedError("optimal_plane=True is not ported to torch yet")
+    keys as the JAX driver).  ``cfg.optimal_plane`` threads the persistent
+    plane cache through `admm.admm_step_cached`.
+
+    ``checkpointer``: a `runtime.checkpoint.CheckpointManager`; the loop
+    resumes from its latest checkpoint (the iteration after it, with its
+    gnorm and, under ``optimal_plane``, its plane cache) and offers each
+    iteration's state to it."""
     max_iters = max_iters if max_iters is not None else cfg.max_iters
     if validate_init:
         clr = initial_clearance(consts, state, scene)
@@ -152,20 +155,42 @@ def solve(
             )
         warn_on_coarse_overflow(consts, cfg, state.spline, scene)
     history: list[dict] = []
-    it = 0
-    gnorm = np.inf
+    cache = (empty_plane_cache(consts.piece_num, consts.res, cfg.max_planes,
+                               device=state.spline.device, dtype=state.spline.dtype)
+             if cfg.optimal_plane else None)
+    it, gnorm, state, cache = _resume(checkpointer, cfg, state, cache, "single")
     while it < max_iters:
         if it > 1 and gnorm < cfg.stop:
             break
         t0 = time.perf_counter()
-        state, diag = admm.admm_step(consts, cfg, state, scene)
+        if cache is None:
+            state, diag = admm.admm_step(consts, cfg, state, scene)
+        else:
+            state, diag, cache = admm.admm_step_cached(consts, cfg, state, scene, cache)
         history.append(_history_row(it, diag, state.piece_time, t0))
         gnorm = history[-1]["gnorm"]
         _warn_plane_overflow(cfg, history)
         if callback:
             callback(it, diag)
+        if checkpointer is not None:
+            checkpointer.maybe_save(it, state, extra={"gnorm": gnorm}, cache=cache)
         it += 1
     return state, history
+
+
+def _resume(checkpointer, cfg: TrajOptConfig, state: SolverState, cache, kind: str):
+    """(first iteration, gnorm, state, cache) to start a loop from: the
+    latest checkpoint's, if there is one, else (0, inf) and the inputs.
+    Under ``optimal_plane`` a saved cache of this ``kind`` ("single" or
+    "multi") replaces the empty one, so refinement keeps accumulating."""
+    restored = None if checkpointer is None else checkpointer.restore_latest_full(
+        device=state.spline.device, dtype=state.spline.dtype)
+    if restored is None:
+        return 0, np.inf, state, cache
+    state, meta, saved = restored
+    if cfg.optimal_plane and meta.get("cache_kind") == kind:
+        cache = saved
+    return meta["step"] + 1, meta.get("extra", {}).get("gnorm", np.inf), state, cache
 
 
 def solve_multi(
@@ -178,11 +203,9 @@ def solve_multi(
     checkpointer=None,
 ) -> tuple[SolverState, list[dict]]:
     """Host-driven multi-robot loop (coupled defaults to ``not cfg.decouple``),
-    with the history keys of `solve`; ``piece_time`` is the fleet maximum."""
-    if checkpointer is not None:
-        raise NotImplementedError("checkpointing is not ported to torch yet")
-    if cfg.optimal_plane:
-        raise NotImplementedError("optimal_plane=True is not ported to torch yet")
+    with the history keys of `solve`; ``piece_time`` is the fleet maximum.
+    ``cfg.optimal_plane`` threads the obstacle and pair plane caches through
+    `multi.multi_admm_step_cached`; ``checkpointer`` as in `solve`."""
     coupled = (not cfg.decouple) if coupled is None else coupled
     max_iters = max_iters if max_iters is not None else cfg.max_iters
     warn_on_coarse_overflow(consts, cfg, state.spline, scene)
@@ -197,14 +220,23 @@ def solve_multi(
             stacklevel=2,
         )
     history: list[dict] = []
-    it, gnorm = 0, np.inf
+    caches = (multi.init_multi_caches(cfg, consts, state.spline.shape[0],
+                                      device=state.spline.device, dtype=state.spline.dtype)
+              if cfg.optimal_plane else None)
+    it, gnorm, state, caches = _resume(checkpointer, cfg, state, caches, "multi")
     while it < max_iters:
         if it > 1 and gnorm < cfg.stop:
             break
         t0 = time.perf_counter()
-        state, diag = multi.multi_admm_step(consts, cfg, state, scene, coupled)
+        if caches is None:
+            state, diag = multi.multi_admm_step(consts, cfg, state, scene, coupled)
+        else:
+            state, diag, caches = multi.multi_admm_step_cached(
+                consts, cfg, state, scene, coupled, caches)
         history.append(_history_row(it, diag, state.piece_time.amax(), t0))
         gnorm = history[-1]["gnorm"]
         _warn_plane_overflow(cfg, history)
+        if checkpointer is not None:
+            checkpointer.maybe_save(it, state, extra={"gnorm": gnorm}, cache=caches)
         it += 1
     return state, history

@@ -10,9 +10,10 @@ the live-pair gates of the obstacle and pair planes, the plateau and GJK
 gates of both CCDs, the GJK gate of each decoupled shrink round and the
 round's own loop test, and the coupled Armijo's step0 test.
 
-Not ported: the plane caches (``optimal_plane=True``), grouped fleets
-(``groups > 1``), independent-scenario batches (``interact=False``) and
-robot sharding; each raises `NotImplementedError`.
+``optimal_plane=True`` refines every obstacle and robot-pair plane, and
+`multi_admm_step_cached` threads the persistent plane caches of both.  Not
+ported: grouped fleets (``groups > 1``), independent-scenario batches
+(``interact=False``) and robot sharding; each raises `NotImplementedError`.
 
 State convention: a `SolverState` whose leaves carry a leading robot axis
 U; ``piece_time`` is [U] in both modes (coupled keeps the entries equal).
@@ -32,7 +33,9 @@ from ..ops import geometry as geo
 from ..ops import gradients as gr
 from ..ops import kkt
 from ..ops import splines as sp
-from ..types import Planes, Scene, SolverState, SplineConsts, StepDiag, concat_planes, init_state
+from ..types import (PairPlaneCache, PlaneCache, Planes, Scene, SolverState, SplineConsts,
+                     StepDiag, concat_planes, empty_pair_plane_cache, empty_plane_cache,
+                     init_state)
 from . import admm
 
 _SHRINK = admm._SHRINK
@@ -47,18 +50,35 @@ def init_multi_state(ops: sp.SplineOps, way_points_list, init_piece_time: float 
     return SolverState(*(torch.stack(leaves) for leaves in zip(*states)))
 
 
+def init_multi_caches(cfg: TrajOptConfig, consts: SplineConsts, u: int, *, device, dtype
+                      ) -> tuple[PlaneCache, PairPlaneCache]:
+    """Empty persistent plane caches of a U-robot fleet (``optimal_plane=True``):
+    the obstacle cache [U,P,R,K] and the pair cache [U,P,R,Ks]."""
+    kw = dict(device=device, dtype=dtype)
+    obs = empty_plane_cache(consts.piece_num, consts.res, cfg.max_planes, **kw)
+    obs = PlaneCache(*(x.expand((u,) + x.shape).clone() for x in obs))
+    ks = min(cfg.max_self_planes, max(u - 1, 1))
+    return obs, empty_pair_plane_cache(u, consts.piece_num, consts.res, ks, **kw)
+
+
 # ---------------------------------------------------------------------------
 # Inter-robot separating planes
 # ---------------------------------------------------------------------------
 
 
-def self_planes(consts: SplineConsts, cfg: TrajOptConfig, splines: torch.Tensor
-                ) -> tuple[Planes, torch.Tensor]:
+def self_planes(consts: SplineConsts, cfg: TrajOptConfig, splines: torch.Tensor,
+                cache: PairPlaneCache | None = None):
     """Per-robot plane tables against the ``max_self_planes`` nearest other
     robots' hulls at each segment (K1), fitted as offset mid-planes by one
     fleet-wide GJK batch (K2) compacted to the ``self_plane_gjk_budget``
     nearest in-radius pairs, then the 1-D barrier Newton on the offset.
-    Returns (planes [U,P,R,Ks,...], overflow)."""
+
+    ``cache``: a pair whose partner has a cached midplane that both current
+    hulls still clear by offset/2 starts from it (Optimization3D_multi.h:
+    278-327); ``cfg.optimal_plane`` then refines every fitted midplane
+    (`geometry.refine_pair_plane`, kept where finite).  Returns (planes
+    [U,P,R,Ks,...], overflow), and with a cache the new one: the refined
+    midplane of each live slot keyed by its partner."""
     u = splines.shape[0]
     hulls = en.seg_cps(consts, splines)                      # [U,P,R,n,3]
     _, p, r, n, _ = hulls.shape
@@ -80,9 +100,14 @@ def self_planes(consts: SplineConsts, cfg: TrajOptConfig, splines: torch.Tensor
     overflow = flat_mask.sum() > budget
     if not bool(flat_mask.any()):
         # no robot pair in radius: no GJK, no plane
-        return Planes(c=torch.zeros(shape + (3,), dtype=dtype, device=device),
-                      d=torch.zeros(shape, dtype=dtype, device=device),
-                      mask=torch.zeros(shape, dtype=torch.bool, device=device)), overflow
+        planes = Planes(c=torch.zeros(shape + (3,), dtype=dtype, device=device),
+                        d=torch.zeros(shape, dtype=dtype, device=device),
+                        mask=torch.zeros(shape, dtype=torch.bool, device=device))
+        if cache is None:
+            return planes, overflow
+        return planes, overflow, PairPlaneCache(
+            partner=torch.full(shape, -1, dtype=idx.dtype, device=device), c=planes.c,
+            d=planes.d)
     geo.check_gjk_route(cfg, device)
     p_idx = torch.arange(p, device=device)[None, :, None, None]
     r_idx = torch.arange(r, device=device)[None, None, :, None]
@@ -97,6 +122,22 @@ def self_planes(consts: SplineConsts, cfg: TrajOptConfig, splines: torch.Tensor
     d0 = (-torch.einsum("nmd,nd->nm", other, c)).amin(dim=1)
     d1 = (-torch.einsum("nmd,nd->nm", mine, c)).amax(dim=1)
     d = geo.optimal_d(mine, other, c, 0.5 * (d0 + d1), cfg.offset, cfg.margin, 8)
+    if cache is not None:
+        match = idx[..., :, None] == cache.partner[..., None, :]     # [U,P,R,Ks,Ks]
+        slot = torch.argmax(match.to(torch.uint8), dim=-1)           # first match
+        hit = match.any(-1).reshape(-1)[sel]
+        warm_c = torch.gather(cache.c, 3, slot[..., None].expand(shape + (3,))).reshape(-1, 3)[sel]
+        warm_d = torch.gather(cache.d, 3, slot).reshape(-1)[sel]
+        wa = torch.einsum("nmd,nd->nm", mine, warm_c) + warm_d[:, None]
+        wb = -(torch.einsum("nmd,nd->nm", other, warm_c) + warm_d[:, None])
+        warm_ok = hit & (wa > 0.5 * cfg.offset).all(1) & (wb > 0.5 * cfg.offset).all(1)
+        c = torch.where(warm_ok[:, None], warm_c, c)
+        d = torch.where(warm_ok, warm_d, d)
+    if cfg.optimal_plane:
+        c_r, d_r = geo.refine_pair_plane(mine, other, c, d, cfg.offset, cfg.margin)
+        good = torch.isfinite(c_r).all(-1) & torch.isfinite(d_r)
+        c = torch.where(good[:, None], c_r, c)
+        d = torch.where(good, d_r, d)
     # near-contact feasibility clamp on this robot's own side (see
     # admm._fit_obstacle_planes): keeps the plane live instead of infeasible
     my_smin = torch.einsum("nmd,nd->nm", mine, c).amin(dim=1)
@@ -107,8 +148,13 @@ def self_planes(consts: SplineConsts, cfg: TrajOptConfig, splines: torch.Tensor
     ok_full = torch.zeros((nf,), dtype=torch.bool, device=device).index_copy(
         0, sel, flat_mask[sel] & valid
     )
-    return Planes(c=c_full.reshape(shape + (3,)), d=d_full.reshape(shape),
-                  mask=ok_full.reshape(shape)), overflow
+    planes = Planes(c=c_full.reshape(shape + (3,)), d=d_full.reshape(shape),
+                    mask=ok_full.reshape(shape))
+    if cache is None:
+        return planes, overflow
+    d_mid = torch.zeros((nf,), dtype=dtype, device=device).index_copy(0, sel, d)
+    return planes, overflow, PairPlaneCache(
+        partner=torch.where(planes.mask, idx, -1), c=planes.c, d=d_mid.reshape(shape))
 
 
 # ---------------------------------------------------------------------------
@@ -174,15 +220,28 @@ def decoupled_ccd_steps(consts: SplineConsts, cfg: TrajOptConfig, splines, direc
 # ---------------------------------------------------------------------------
 
 
-def _all_planes(consts, cfg, state, scene) -> tuple[Planes, torch.Tensor]:
+def _all_planes(consts, cfg, state, scene, caches=None):
     """Fleet plane tables (obstacle slots, then robot-pair slots) and the
-    overflow flag."""
+    overflow flag, and with ``caches`` (obstacle `PlaneCache` [U,...],
+    `PairPlaneCache`) the new caches.  The default obstacle tables compact
+    the whole fleet's candidates into one budget (`separate_planes_batch`);
+    with ``optimal_plane`` or caches each robot keeps its full table (the
+    cache slots align with it), all robots in one GJK batch."""
+    multi = state.spline.shape[0] > 1
+    if caches is not None:
+        obs_cache, pair_cache = caches
+        obstacle, overflow, obs_cache = admm.separate_planes(
+            consts, cfg, state.spline, scene, obs_cache)
+        if multi:
+            slf, self_overflow, pair_cache = self_planes(consts, cfg, state.spline, pair_cache)
+            return (concat_planes(obstacle, slf), overflow | self_overflow,
+                    (obs_cache, pair_cache))
+        return obstacle, overflow, (obs_cache, pair_cache)
     if cfg.optimal_plane:
-        raise NotImplementedError(
-            "optimal_plane=True (the multi-robot plane caches) is not ported to torch yet"
-        )
-    obstacle, overflow = admm.separate_planes_batch(consts, cfg, state.spline, scene)
-    if state.spline.shape[0] > 1:
+        obstacle, overflow = admm.separate_planes(consts, cfg, state.spline, scene)
+    else:
+        obstacle, overflow = admm.separate_planes_batch(consts, cfg, state.spline, scene)
+    if multi:
         slf, self_overflow = self_planes(consts, cfg, state.spline)
         return concat_planes(obstacle, slf), overflow | self_overflow
     return obstacle, overflow
@@ -309,11 +368,30 @@ def multi_admm_step(
         raise NotImplementedError("interact=False (scenario batches) is not ported to torch yet")
     if groups != 1:
         raise NotImplementedError("groups > 1 (grouped coupled fleets) is not ported to torch yet")
-    # Full-f32 matmuls are required: the KKT blocks reach condition ~1e6 and
-    # reduced-precision passes give NaN Cholesky pivots.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    planes, plane_overflow = _all_planes(consts, cfg, state, scene)
+    with admm.full_f32_matmul():
+        return _multi_step(consts, cfg, state, scene, coupled)
+
+
+def multi_admm_step_cached(
+    consts: SplineConsts,
+    cfg: TrajOptConfig,
+    state: SolverState,
+    scene: Scene,
+    coupled: bool,
+    caches: tuple[PlaneCache, PairPlaneCache],
+) -> tuple[SolverState, StepDiag, tuple[PlaneCache, PairPlaneCache]]:
+    """`multi_admm_step` threading the persistent obstacle and pair plane
+    caches (``optimal_plane=True`` semantics, Optimization3D_multi.h:278-327).
+    Returns (state, diag, new caches)."""
+    with admm.full_f32_matmul():
+        return _multi_step(consts, cfg, state, scene, coupled, caches)
+
+
+def _multi_step(consts, cfg, state, scene, coupled, caches=None):
+    if caches is None:
+        planes, plane_overflow = _all_planes(consts, cfg, state, scene)
+    else:
+        planes, plane_overflow, caches = _all_planes(consts, cfg, state, scene, caches)
     ls, red = _directions(consts, cfg, state, planes)
     update = _coupled_update if coupled else _decoupled_update
     spline, piece_time, steps, ccd_steps, gnorm, e_acc = update(
@@ -332,4 +410,4 @@ def multi_admm_step(
         infeasible=~torch.isfinite(e_acc),
         plane_overflow=plane_overflow,
     )
-    return state, diag
+    return (state, diag) if caches is None else (state, diag, caches)

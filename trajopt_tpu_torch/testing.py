@@ -213,3 +213,19 @@ def brute_origin_dist(u):
             if ((sol >= -1e-12).all(1) & (res < 1e-9)).any():
                 best[i] = 0.0
     return best
+
+
+# The JAX package's CPU float64 solves with ``optimal_plane=True`` that
+# chip_smoke.py holds the card's to (iterations within its ITER_SLACK, ccd
+# within 2%): the bridge (20000 points, seed 0, P = 4; TrajOptConfig(ks=1e-8,
+# max_planes=16, max_ccd_candidates=16)) and the 64-robot cross coupled
+# (4000 points, seed 0, lane-assigned waypoints, P = 4; TrajOptConfig(res=8,
+# ks=1e-3, max_planes=16, max_self_planes=4, max_ccd_candidates=16)).  The
+# command that made them, and that checks them (~3 min on the CPU):
+#     python -m pytest tests/test_torch_optimal_plane.py -m slow -k jax_rows
+OPTIMAL_PLANE_JAX_ROWS = {
+    "single p4": dict(iters=26, converged=True, ccd_time=9.426650342105038,
+                      ccd_len=16.001589760663016, min_clearance=0.8060133208084507),
+    "u64 coupled": dict(iters=22, converged=True, ccd_time=924.6096998077479,
+                        ccd_len=1610.7727116115466, min_clearance=0.1422943607472134),
+}

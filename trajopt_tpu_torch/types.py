@@ -90,6 +90,45 @@ def concat_planes(a: Planes, b: Planes) -> Planes:
     )
 
 
+class PlaneCache(NamedTuple):
+    """Persistent per-(segment, obstacle id) separating-plane cache of
+    ``optimal_plane=True`` (the reference's ``is_seperate / seperate_c``
+    tables, CCDUtils.h:64-70): a cached normal warm-starts the barrier-optimal
+    refinement (`geometry.refine_plane`), so refinement accumulates across
+    iterations.  ``obs_id == -1`` marks an empty slot.  A fleet's cache
+    carries a leading robot axis U."""
+
+    obs_id: torch.Tensor  # [P, R, K] int64 obstacle ids
+    c: torch.Tensor       # [P, R, K, 3] unit normals
+
+
+def empty_plane_cache(piece_num: int, res: int, k: int, *, device, dtype) -> PlaneCache:
+    return PlaneCache(
+        obs_id=torch.full((piece_num, res, k), -1, dtype=torch.int64, device=device),
+        c=torch.zeros((piece_num, res, k, 3), dtype=dtype, device=device),
+    )
+
+
+class PairPlaneCache(NamedTuple):
+    """Persistent per-(robot, segment, partner robot) pair-plane cache (the
+    reference's ``is_self_seperate / self_seperate_c / self_seperate_d``,
+    Optimization3D_multi.h:278-327): the refined midplane warm-starts
+    `geometry.refine_pair_plane`.  ``partner == -1`` marks an empty slot."""
+
+    partner: torch.Tensor  # [U, P, R, Ks] int64 partner robot ids
+    c: torch.Tensor        # [U, P, R, Ks, 3] unit normals (own side positive)
+    d: torch.Tensor        # [U, P, R, Ks] midplane offsets
+
+
+def empty_pair_plane_cache(u: int, piece_num: int, res: int, ks: int, *, device, dtype
+                           ) -> PairPlaneCache:
+    return PairPlaneCache(
+        partner=torch.full((u, piece_num, res, ks), -1, dtype=torch.int64, device=device),
+        c=torch.zeros((u, piece_num, res, ks, 3), dtype=dtype, device=device),
+        d=torch.zeros((u, piece_num, res, ks), dtype=dtype, device=device),
+    )
+
+
 class Scene(NamedTuple):
     """Static obstacle point cloud (padded to fixed N)."""
 
@@ -180,7 +219,8 @@ def init_state(
 
 _CONTAINERS = {
     cls.__name__: cls
-    for cls in (SplineConsts, Planes, Scene, SolverState, StepDiag, Candidates)
+    for cls in (SplineConsts, Planes, Scene, SolverState, StepDiag, Candidates, PlaneCache,
+                PairPlaneCache)
 }
 
 
