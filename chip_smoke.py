@@ -51,9 +51,18 @@ Phases, each reported on its own lines with the seconds it took:
    64512 problems with each routed G (`fw_route_matrix`), and K3, K4 and
    the fused kernel at every call-site shape beside their latency floor
    (an empty kernel plus m or 2m dependent steps, measured by a one-warp
-   probe); last, what the P = 16 KKT (ns = 141) pays outside the kernels.  ``ms`` is per call
+   probe); last, what the P = 16 KKT (ns = 141) pays per call.  ``ms`` is per call
    between CUDA events (the host's cost of issuing a call included),
-   ``device_ms`` from 50 launches in one CUDA graph.
+   ``device_ms`` from 50 launches in one CUDA graph;
+6. the fused drivers (`solve_fused` on the bridge at P=4 and P=16,
+   `solve_fused_multi` on the 64-robot cross coupled and decoupled,
+   `solve_fused_multi_cached` on the cross coupled with ``optimal_plane``),
+   each solve one CUDA graph replayed: the host-stepped solve's iteration
+   count of phases 3-4, the final state beside it, the C++ gate (the JAX
+   row with ``optimal_plane``), pairwise clearance by K2, host syncs =
+   replays + 2 final reads, kernel nodes per capture, warm-up and capture
+   ms, wall ms per iteration beside the host-stepped solve's, and device
+   busy and idle share over one replay.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -906,7 +915,6 @@ def solve_case(pieces, device, dtype, max_iters=MAX_ITERS, checkpointer=None, **
     """One bridge solve; returns the result row (iterations, quality, timing,
     the final spline; ``last_iter``: the last iteration's number, which a
     resumed solve continues)."""
-    from trajopt_tpu_torch import metrics as mt
     from trajopt_tpu_torch.solver import driver
 
     cfg, ops, cloud, consts, scene, state0 = build_problem(pieces, device, dtype, **options)
@@ -914,23 +922,30 @@ def solve_case(pieces, device, dtype, max_iters=MAX_ITERS, checkpointer=None, **
     state, hist = driver.solve(consts, cfg, state0, scene, max_iters=max_iters,
                                checkpointer=checkpointer)
     wall = time.perf_counter() - t0
-    spline = state.spline.detach().double().cpu().numpy()
-    piece_time = float(state.piece_time)
-    st = mt.trajectory_stats(ops, spline, piece_time)
     return {
         "pieces": pieces,
         "iters": len(hist),
         "gnorm": hist[-1]["gnorm"],
         "converged": len(hist) < MAX_ITERS and hist[-1]["gnorm"] < cfg.stop,
-        "ccd_time": st["ccd_time"],
-        "ccd_len": st["ccd_len"],
-        "min_clearance": mt.min_curve_clearance(ops, spline, cloud, piece_time),
+        **single_quality(ops, cloud, state),
         "offset": cfg.offset,
         "median_iter_ms": statistics.median(h["wall_ms"] for h in hist),
         "solve_s": wall,
         "last_iter": hist[-1]["iter"],
-        "spline": spline,
     }
+
+
+def single_quality(ops, cloud, state):
+    """ccd_time, ccd_len and min curve clearance of a single-UAV state, and
+    its spline and piece time as numpy."""
+    from trajopt_tpu_torch import metrics as mt
+
+    spline = state.spline.detach().double().cpu().numpy()
+    piece_time = float(state.piece_time)
+    st = mt.trajectory_stats(ops, spline, piece_time)
+    return {"ccd_time": st["ccd_time"], "ccd_len": st["ccd_len"],
+            "min_clearance": mt.min_curve_clearance(ops, spline, cloud, piece_time),
+            "spline": spline, "piece_time": piece_time}
 
 
 def reference_row(mode, **key):
@@ -956,8 +971,9 @@ def check_parity(label, row, ref, log, against="C++"):
     check(row["min_clearance"] >= row["offset"], f"{label}: clearance below offset")
 
 
-def count_syncs(step):
-    """Host syncs in one call of ``step()``, by source line of the port."""
+def count_syncs(step, outside=False):
+    """Host syncs in one call of ``step()``, by source line of the port;
+    with ``outside`` also those this script makes in ``step`` itself."""
     import collections
     import traceback
 
@@ -965,10 +981,20 @@ def count_syncs(step):
 
     where = collections.Counter()
     pkg = os.path.join(HERE, "trajopt_tpu_torch")
+    mine = os.path.abspath(__file__)
+
+    def ours(f):
+        return f.filename.startswith(pkg) or (outside and f.filename == mine and f.name != "record")
 
     def record(message, *args, **kwargs):
         if "synchroniz" in str(message):
-            frames = [f for f in traceback.extract_stack() if f.filename.startswith(pkg)]
+            stack = traceback.extract_stack()
+            # only what ``step`` called: the frames below this function's own
+            top = max(i for i, f in enumerate(stack) if f.name == "count_syncs")
+            frames = [f for f in stack[top + 1:] if ours(f)]
+            # a device_cond's host read is charged to the line that called it
+            while len(frames) > 1 and frames[-1].name in ("device_cond", "fixed_rounds"):
+                frames.pop()
             if frames:          # switching the debug mode on warns once itself
                 f = frames[-1]
                 where[f"{os.path.relpath(f.filename, HERE)}:{f.lineno}"] += 1
@@ -1131,7 +1157,6 @@ def fleet_pair_diffs(device):
 def solve_fleet(uavs, coupled, device, dtype, **options):
     """One cross solve until gnorm < stop; returns (row, cfg, consts, scene,
     final state)."""
-    from trajopt_tpu_torch import metrics as mt
     from trajopt_tpu_torch.solver import driver
 
     cfg, ops, cloud, consts, scene, state0 = build_fleet(uavs, device, dtype, **options)
@@ -1139,25 +1164,34 @@ def solve_fleet(uavs, coupled, device, dtype, **options):
     state, hist = driver.solve_multi(consts, cfg, state0, scene, coupled=coupled,
                                      max_iters=FLEET_MAX_ITERS)
     wall = time.perf_counter() - t0
+    row = {
+        "uavs": uavs, "mode": "coupled" if coupled else "decoupled",
+        "iters": len(hist), "gnorm": hist[-1]["gnorm"],
+        "converged": len(hist) < FLEET_MAX_ITERS and hist[-1]["gnorm"] < cfg.stop,
+        **fleet_quality(ops, cloud, state),
+        "offset": cfg.offset, "solve_s": wall,
+        "median_iter_ms": statistics.median(h["wall_ms"] for h in hist),
+    }
+    return row, cfg, consts, scene, state
+
+
+def fleet_quality(ops, cloud, state):
+    """ccd_time and ccd_len summed over the robots, the min curve clearance,
+    and the splines and piece times as numpy."""
+    from trajopt_tpu_torch import metrics as mt
+
     splines = state.spline.detach().double().cpu().numpy()
     times = state.piece_time.detach().double().cpu().numpy()
     ccd_time = ccd_len = 0.0
     clearance = float("inf")
-    for i in range(uavs):
+    for i in range(splines.shape[0]):
         st = mt.trajectory_stats(ops, splines[i], float(times[i]))
         ccd_time += st["ccd_time"]
         ccd_len += st["ccd_len"]
         clearance = min(clearance, float(mt.min_curve_clearance(ops, splines[i], cloud,
                                                                 float(times[i]))))
-    row = {
-        "uavs": uavs, "mode": "coupled" if coupled else "decoupled",
-        "iters": len(hist), "gnorm": hist[-1]["gnorm"],
-        "converged": len(hist) < FLEET_MAX_ITERS and hist[-1]["gnorm"] < cfg.stop,
-        "ccd_time": ccd_time, "ccd_len": ccd_len, "min_clearance": clearance,
-        "offset": cfg.offset, "solve_s": wall,
-        "median_iter_ms": statistics.median(h["wall_ms"] for h in hist),
-    }
-    return row, cfg, consts, scene, state
+    return {"ccd_time": ccd_time, "ccd_len": ccd_len, "min_clearance": clearance,
+            "spline": splines, "piece_time": times}
 
 
 def pair_clearance_check(cfg, consts, state, log):
@@ -1279,7 +1313,7 @@ def optimal_fleet_phase(device, log):
     kernel (also by call shape), host syncs per steady iteration (<= 9, the
     default path's count) and the device's idle share; then 4 robots coupled
     on the card against the port's CPU float64 run.  Returns (launches,
-    launches by shape)."""
+    launches by shape, the 64-robot row)."""
     import torch
     from trajopt_tpu_torch.ops import _cuda
     from trajopt_tpu_torch.solver import multi
@@ -1331,7 +1365,169 @@ def optimal_fleet_phase(device, log):
     check(cpu["converged"], f"u{SMALL_FLEET} optimal_plane: the CPU float64 run did not converge")
     check_parity(f"u{SMALL_FLEET} coupled optimal_plane card", small, cpu, log,
                  against="the port's CPU float64")
-    return launches, by_shape
+    return launches, by_shape, row
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the fused drivers
+# ---------------------------------------------------------------------------
+
+
+def fused_cases():
+    """(label, problem builder, driver kind, coupled, C++ or JAX row key) of
+    the fused solves, in the order of the host-stepped ones they are held
+    to."""
+    import torch
+
+    f32 = torch.float32
+    return [
+        (f"single p{SLICE_PIECES[0]}", lambda d: build_problem(SLICE_PIECES[0], d, f32),
+         None, ("single", dict(pieces=SLICE_PIECES[0]))),
+        (f"single p{SLICE_PIECES[1]}", lambda d: build_problem(SLICE_PIECES[1], d, f32),
+         None, ("single", dict(pieces=SLICE_PIECES[1]))),
+        (f"u{FLEET} coupled", lambda d: build_fleet(FLEET, d, f32), True,
+         ("coupled", dict(uavs=FLEET))),
+        (f"u{FLEET} decoupled", lambda d: build_fleet(FLEET, d, f32), False,
+         ("decoupled", dict(uavs=FLEET))),
+        (f"u{FLEET} coupled optimal_plane",
+         lambda d: build_fleet(FLEET, d, f32, optimal_plane=True), True,
+         ("jax", f"u{FLEET} coupled")),
+    ]
+
+
+def _fused_solve(consts, cfg, scene, state0, coupled, max_iters):
+    """The fused driver of the case; returns (state, it, gnorm)."""
+    from trajopt_tpu_torch.solver import driver, multi
+
+    if coupled is None:
+        return driver.solve_fused(consts, cfg, state0, scene, max_iters=max_iters)
+    if not cfg.optimal_plane:
+        return driver.solve_fused_multi(consts, cfg, state0, scene, coupled, max_iters=max_iters)
+    caches = multi.init_multi_caches(cfg, consts, state0.spline.shape[0],
+                                     device=state0.spline.device, dtype=state0.spline.dtype)
+    return driver.solve_fused_multi_cached(consts, cfg, state0, scene, coupled, caches,
+                                           max_iters=max_iters)[:3]
+
+
+def flag_read_cost(cap, reps=10):
+    """(ms per replay with the host reading the flag after each, ms per
+    replay back to back with one read at the end), best of two, host clock
+    around work that ends in a read of the flag."""
+    import torch
+
+    def timed(read_each):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            cap.graph.replay()
+            if read_each:
+                bool(cap.flag)
+        bool(cap.flag)
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    return min(timed(True), timed(True)), min(timed(False), timed(False))
+
+
+def fused_phase(device, host_rows, log):
+    """Phase 6: every fused driver on the card at full width, each held to
+    the host-stepped solve of the same run (``host_rows``: the same
+    iteration count; the final state's largest difference printed, bit-equal
+    expected), to the C++ gate of phase 3-4 (or, with ``optimal_plane``, the
+    JAX CPU float64 row), pairwise clearance by K2 for fleets, and host
+    syncs of the solve = graph replays + the 2 final reads (iterations and
+    gnorm) this script makes.  Prints the kernel nodes per capture (each
+    runs once per replay; they are not executions), warm-up and capture ms,
+    wall ms per iteration beside the host-stepped solve's, and, over one
+    replay from the start state under torch.profiler, the device busy ms,
+    the idle share, and the busy ms of one host-stepped step from the same
+    state (the select form's extra device work), and what a host read of
+    the flag costs per replay (`flag_read_cost`)."""
+    import numpy as np
+    import torch
+    from trajopt_tpu_torch.ops import _cuda
+    from trajopt_tpu_torch.runtime import graph
+    from trajopt_tpu_torch.solver import driver, multi
+    from trajopt_tpu_torch.testing import OPTIMAL_PLANE_JAX_ROWS
+
+    for label, build, coupled, (mode, ref_key) in fused_cases():
+        cfg, ops, cloud, consts, scene, state0 = build(device)
+        host = host_rows[label]
+        max_iters = MAX_ITERS if coupled is None else FLEET_MAX_ITERS
+        out = {}
+
+        def solve():
+            state, it, gnorm = _fused_solve(consts, cfg, scene, state0, coupled, max_iters)
+            out.update(state=state, it=int(it), gnorm=float(gnorm))
+
+        key = f"{label} fused"
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        syncs = count_syncs(solve, outside=True)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        launches, by_shape = dict(_cuda.LAUNCHES), shape_counts()
+        run = graph.LAST_RUN
+        state, it = out["state"], out["it"]
+        quality = (single_quality if coupled is None else fleet_quality)(ops, cloud, state)
+        row = {"iters": it, "gnorm": out["gnorm"], "offset": cfg.offset,
+               "converged": it < max_iters and out["gnorm"] < cfg.stop, **quality}
+        diff = max(float(np.abs(row["spline"] - host["spline"]).max()),
+                   float(np.abs(np.asarray(row["piece_time"]) - np.asarray(host["piece_time"])).max()))
+        log(f"  {key}: iters {it} (host-stepped {host['iters']}), gnorm {out['gnorm']:.4g}, "
+            f"replays {run.replays} of {run.steps_per_replay} step(s), max |fused - host-stepped| "
+            f"over splines and piece times {diff:.3g}")
+        log(f"    kernel nodes per capture (each runs once per replay; not executions): "
+            + ", ".join(f"{k} {v}" for k, v in run.kernel_nodes.items()))
+        log(f"    warm-up {run.warmup_ms:.1f} ms, capture {run.capture_ms:.1f} ms, replays "
+            f"{run.replay_ms:.1f} ms = {run.replay_ms / max(it, 1):.3f} ms/iter; whole call "
+            f"{wall_ms:.1f} ms = {wall_ms / max(it, 1):.3f} ms/iter; host-stepped median "
+            f"{host['median_iter_ms']:.3f} ms/iter, mean {host['solve_s'] * 1e3 / host['iters']:.3f}")
+        log_launches(key, launches, by_shape, log)
+        on_path = [k for k in SOLVE_KERNELS
+                   if k != "chol_solve" or coupled is not None or 9 * consts.piece_num - 3 <= 64]
+        for name in on_path:
+            check(launches[name] > 0, f"{key}: kernel {name} was never launched")
+            check(run.kernel_nodes[name] > 0, f"{key}: kernel {name} has no node in the graph")
+        check(it == host["iters"], f"{key}: {it} iterations, the host-stepped solve took "
+                                   f"{host['iters']}")
+        if mode == "jax":
+            ref = OPTIMAL_PLANE_JAX_ROWS[ref_key]
+            check(ref["converged"], f"{key}: the JAX row did not converge")
+            check_parity(key, row, ref, log, against="JAX CPU float64")
+        else:
+            check_parity(key, row, reference_row(mode, **ref_key), log)
+        if coupled is not None:
+            clr = driver.initial_pair_clearance(consts, state)
+            log(f"    pairwise clearance by K2 {clr:.5f} (offset {cfg.offset})")
+            check(clr >= cfg.offset - 1e-6, f"{key}: pairwise clearance {clr:.6f} below offset")
+        total = sum(syncs.values())
+        log(f"    host syncs in the whole fused solve: {total}")
+        for line, n in sorted(syncs.items()):
+            log(f"      {n:3d}  {line}")
+        check(total == run.replays + 2, f"{key}: {total} host syncs, expected {run.replays} "
+                                        "replays + 2 final reads")
+
+        # one replay from the start state against one host-stepped step
+        carry = (state0,)
+        if cfg.optimal_plane:
+            carry += (multi.init_multi_caches(cfg, consts, state0.spline.shape[0], device=device,
+                                              dtype=state0.spline.dtype),)
+        step = driver.fused_step(consts, cfg, scene, coupled, cached=cfg.optimal_plane)
+        cap = graph.capture(step, carry, max_iters, cfg.stop)
+        busy, replay_wall = device_busy_share(cap.replay, 1)
+        eager_busy, eager_wall = device_busy_share(lambda: step(carry), 1)
+        # what a longer block would save: the flag read and the next launch
+        # after each replay (STEPS_PER_REPLAY); a replay past the stop still
+        # runs the step (select form), so the timing is the same either way
+        read_ms, back_ms = flag_read_cost(cap)
+        del cap
+        log(f"    torch.profiler, one replay from the start: device busy {busy:.3f} ms of "
+            f"{replay_wall:.3f} ms wall, idle share {1.0 - busy / replay_wall:.3f}; one "
+            f"host-stepped step from the same state: busy {eager_busy:.3f} ms of "
+            f"{eager_wall:.3f} ms wall (select form adds {busy - eager_busy:.3f} ms)")
+        log(f"    10 replays, ms each (host clock): with the flag read after each {read_ms:.4f}, "
+            f"back to back with one read at the end {back_ms:.4f} (a read costs "
+            f"{read_ms - back_ms:.4f})")
 
 
 # ---------------------------------------------------------------------------
@@ -1658,10 +1854,11 @@ def chol_shape_timings(inputs, floor=None, library=True):
 
 def large_kkt_timings(device):
     """What the P >= 8 reduced KKT (ns > 64, here ns = 141 of P = 16) pays
-    per call outside the kernels: `kkt._factor_block_tridiag` (a loop of
-    `cholesky_ex`, `solve_triangular` and matmuls over 18 x 18 blocks) and
-    the `torch.cholesky_solve` of `kkt._factor_solve` with two right-hand
-    sides, for one system and for 64.  ms per call between CUDA events."""
+    per call: `kkt._factor_block_tridiag` (a loop over 18 x 18 blocks of
+    `solve_triangular`, matmuls and K3 in plain mode) and the block-by-block
+    `solve_triangular` substitutions of `kkt._factor_solve` with two
+    right-hand sides, for one system and for 64.  ms per call between CUDA
+    events (host issue included)."""
     import numpy as np
     import torch
     from trajopt_tpu_torch.ops import kkt
@@ -1860,7 +2057,7 @@ def main() -> int:
 
     # -- phase 3 ------------------------------------------------------------
     log("== phase 3: single-UAV bridge solves (float32, on the card)")
-    launches, by_shape = {}, {}
+    launches, by_shape, host_rows = {}, {}, {}
     for pieces in SLICE_PIECES:
         _cuda.reset_launches()
         row = solve_case(pieces, device, torch.float32)
@@ -1872,14 +2069,15 @@ def main() -> int:
             f"min clearance {row['min_clearance']:.4f}, median {row['median_iter_ms']:.2f} ms/iter, "
             f"solve {row['solve_s']:.2f} s, launches {launches[f'single p{pieces}']}")
         log(f"    launches by call shape: {by_shape[f'single p{pieces}']}")
-        # past ns = 9P - 3 = 64 the reduced KKT leaves the kernels (block-
-        # tridiagonal factor, `torch.cholesky_solve`), and K4 alone serves
-        # only its refinement: that path has no launch of `chol_solve`
+        # past ns = 9P - 3 = 64 the reduced KKT is block-tridiagonal (K3 in
+        # plain mode on its 18 x 18 blocks, `solve_triangular` solves): that
+        # path has no launch of `chol_solve`
         on_path = [k for k in SOLVE_KERNELS if k != "chol_solve" or 9 * pieces - 3 <= 64]
         for name in on_path:
             check(launches[f"single p{pieces}"][name] > 0,
                   f"p{pieces}: kernel {name} was never launched by the solve")
         check_parity(f"p{pieces}", row, reference_row("single", pieces=pieces), log)
+        host_rows[f"single p{pieces}"] = row
         if pieces == SLICE_PIECES[0]:
             card_iters = row["iters"]
             card_rows = {"default": row}
@@ -1896,13 +2094,16 @@ def main() -> int:
 
     # -- phase 4 ------------------------------------------------------------
     log(f"== phase 4: {FLEET}-robot cross, coupled and decoupled (float32, on the card)")
-    fleet_launches, _, fleet_shapes = fleet_phase(device, log)
+    fleet_launches, fleet_rows, fleet_shapes = fleet_phase(device, log)
     launches.update(fleet_launches)
     by_shape.update(fleet_shapes)
-    fleet_launches, fleet_shapes = optimal_fleet_phase(device, log)
+    host_rows.update({f"u{FLEET} {mode}": r for mode, r in fleet_rows.items()})
+    fleet_launches, fleet_shapes, host_rows[f"u{FLEET} coupled optimal_plane"] = \
+        optimal_fleet_phase(device, log)
     launches.update(fleet_launches)
     by_shape.update(fleet_shapes)
     phase_done(4)
+
 
     # -- phase 5 ------------------------------------------------------------
     log(f"== phase 5: kernel, plain, library and bound times ({smi}); ms per call between "
@@ -1962,9 +2163,15 @@ def main() -> int:
             f"{r['device_ms']:.4f} (busy {r['busy_ms']:.4f}), library {lib}, bound {r['bound_ms']:.5f} ({r['bound_by']}), "
             f"floor {r['floor_ms']:.5f} ({r['device_ms'] / r['floor_ms']:.2f}x), digest {r['digest']}")
     for shape, tm in large_kkt_timings(device).items():
-        log(f"  P=16 KKT {shape} outside the kernels, ms per call: block-tridiagonal factor "
-            f"{tm['factor_ms']:.4f}, cholesky_solve with 2 right-hand sides {tm['solve_ms']:.4f}")
+        log(f"  P=16 KKT {shape}, ms per call: block-tridiagonal factor "
+            f"{tm['factor_ms']:.4f}, block solve with 2 right-hand sides {tm['solve_ms']:.4f}")
     phase_done(5)
+
+    # -- phase 6 ------------------------------------------------------------
+    log(f"== phase 6: the fused drivers, each solve one CUDA graph replayed (float32, on the "
+        f"card; {smi})")
+    fused_phase(device, host_rows, log)
+    phase_done(6)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     path = {name: f"u{FLEET} coupled" for name in KERNELS}

@@ -35,7 +35,10 @@ FLAGS = (
 
 # Launch counts per kernel.  Each wrapper adds one where it launches its
 # kernel and nowhere else, so a run can prove its main path used them.
-# LAUNCH_SHAPES splits the same counts by (kernel, call shape key).
+# LAUNCH_SHAPES splits the same counts by (kernel, call shape key).  They
+# count host calls: while a CUDA graph is captured a call adds a kernel node,
+# which then runs once per replay uncounted (`runtime.graph.capture` keeps
+# the per-capture count, `Captured.kernel_nodes`).
 LAUNCHES = {"smallest_k": 0, "gjk_exact": 0, "gjk_fw": 0, "mod_chol": 0, "chol_solve": 0,
             "factor_solve": 0}
 LAUNCH_SHAPES: collections.Counter = collections.Counter()

@@ -14,8 +14,9 @@ Levels 2-3 run only on the ``seg_budget`` segments with the smallest
 level-1 limits; every other segment keeps its own exact level-1 limit.
 The robot-pair CCD (`pair_max_step_direct` for the coupled step,
 `build_pair_ccd` + `pair_bad` for the decoupled shrink fixpoint) follows
-the same scheme on (segment, partner robot) pairs.  The `lax.cond` gates of
-the JAX package are Python branches here (one host sync each).
+the same scheme on (segment, partner robot) pairs.  Each `lax.cond` gate of
+the JAX package is a `runtime.graph.device_cond`: a Python branch (one host
+sync) in the host-stepped solve, both sides and a select in a captured one.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..runtime import graph
 from . import cuda_topk
 from . import geometry as geo
 
@@ -86,13 +88,12 @@ def obstacle_max_step_direct(
     s0 = _level1(hull.reshape(n_seg, n, 3), dhull.reshape(n_seg, n, 3), points, pmask, offset)
     s_seg_min = s0.amin(dim=-1)                          # [S]
     # plateau regime: every (segment, point) limit certifies the full step
-    if bool(s_seg_min.amin() >= 1.0):
-        s_b = s_seg_min.reshape(b, p, r).amin(dim=(-1, -2))
-    else:
-        s_b = _obstacle_levels_23(
-            hull, dhull, points, pmask, s_seg_min, offset, gjk_iters,
-            s1_slots, n_slots, seg_budget,
-        )
+    s_b = graph.device_cond(
+        s_seg_min.amin() >= 1.0,
+        lambda: s_seg_min.reshape(b, p, r).amin(dim=(-1, -2)),
+        lambda: _obstacle_levels_23(hull, dhull, points, pmask, s_seg_min, offset, gjk_iters,
+                                    s1_slots, n_slots, seg_budget),
+    )
     return torch.clamp(s_b, 0.0, 1.0 + 1e-6)
 
 
@@ -154,7 +155,7 @@ def _obstacle_levels_23(
     # level 3: GJK + directional Lipschitz refinement, only when it can
     # matter (some selected limit below the full step); skipping is
     # strictly conservative
-    if bool(s_sel.amin() < 1.0):
+    def refine():
         sel_pts = points[idx2]                           # [W,S2,3]
         diff = (hull_f[:, None] - sel_pts[..., None, :]).reshape(-1, n, 3)
         hd = geo.batched_origin_dist(diff, gjk_iters)
@@ -175,9 +176,9 @@ def _obstacle_levels_23(
         )
         s_dir = torch.where(lcert > offset, s_dir, -float("inf"))
         s_ref = torch.maximum(s_ref, s_dir.reshape(idx2.shape))
-        s_ref = torch.maximum(s_sel, torch.clamp(s_ref, min=0.0))
-    else:
-        s_ref = s_sel
+        return torch.maximum(s_sel, torch.clamp(s_ref, min=0.0))
+
+    s_ref = graph.device_cond(s_sel.amin() < 1.0, refine, lambda: s_sel)
     seg_ref = torch.minimum(s_ref.amin(dim=-1), torch.minimum(cap1, cap2))
 
     # scatter refined limits back to robots
@@ -222,7 +223,7 @@ def pair_max_step_direct(
 
     ``my_*``: [U,P,R,n,3] local robots; ``all_*``: [Ut,P,R,n,3] the fleet;
     ``gids``: [U] fleet ids of the local robots.  The plateau gate is a
-    Python branch (one host sync)."""
+    `device_cond`."""
     ut = all_hulls.shape[0]
     lo3_a, hi3_a = _interval(my_hulls)                   # [U,P,R,3]
     lo3_b, hi3_b = _interval(all_hulls)                  # [Ut,P,R,3]
@@ -238,11 +239,12 @@ def pair_max_step_direct(
                      float("inf")).contiguous()
     s_seg_min = s3.amin(dim=-1)                          # [U,P,R]
     # plateau regime: every pair limit certifies the full step
-    if bool(s_seg_min.amin() >= 1.0):
-        s_u = s_seg_min.amin(dim=(-1, -2))
-    else:
-        s_u = _pair_levels_23(my_hulls, my_dhulls, all_hulls, all_dhulls, s3, offset,
-                              gjk_iters, k_partners, n_slots)
+    s_u = graph.device_cond(
+        s_seg_min.amin() >= 1.0,
+        lambda: s_seg_min.amin(dim=(-1, -2)),
+        lambda: _pair_levels_23(my_hulls, my_dhulls, all_hulls, all_dhulls, s3, offset,
+                                gjk_iters, k_partners, n_slots),
+    )
     return torch.clamp(s_u, 0.0, 1.0 + 1e-6)
 
 
@@ -291,7 +293,7 @@ def _pair_levels_23(my_hulls, my_dhulls, all_hulls, all_dhulls, s3, offset, gjk_
 
     # level 3 only when it can matter (some selected limit below the full
     # step); skipping is strictly conservative
-    if bool(s_sel.amin() < 1.0):
+    def refine():
         take = loc[..., None, None].expand(loc.shape + (n, 3))
         sel_hulls = torch.gather(sel_hulls1, 3, take)    # [U,P,R,S2,n,3]
         sel_dhulls = torch.gather(sel_dhulls1, 3, take)
@@ -313,9 +315,9 @@ def _pair_levels_23(my_hulls, my_dhulls, all_hulls, all_dhulls, s3, offset, gjk_
                             float("inf"))
         s_dir = torch.where(lcert > offset, s_dir, -float("inf"))
         s_ref = torch.maximum(s_ref, s_dir)
-        s_ref = torch.maximum(s_sel, torch.clamp(s_ref, min=0.0))
-    else:
-        s_ref = s_sel
+        return torch.maximum(s_sel, torch.clamp(s_ref, min=0.0))
+
+    s_ref = graph.device_cond(s_sel.amin() < 1.0, refine, lambda: s_sel)
     s_seg = torch.minimum(s_ref.amin(dim=-1), torch.minimum(cap1, cap2))
     return s_seg.amin(dim=(-1, -2))                      # [U]
 
@@ -364,8 +366,8 @@ def pair_bad(tabs: PairCCD, my_steps, all_steps, offset, gjk_iters) -> torch.Ten
     The S smallest-gap partners per segment get a GJK test (K1 selects
     them, K2 runs it on the 4n^2-vertex swept differences); more than S
     uncleared partners in one segment is conservatively inadmissible.  The
-    GJK gate is a Python branch (one host sync)."""
-    u, p, r, n, _ = tabs.my_hull.shape
+    GJK gate (some selected pair uncleared) is a `device_cond`."""
+    _, p, r, n, _ = tabs.my_hull.shape
     sm = my_steps[:, None, None, None, None]
     sa = all_steps[:, None, None, None, None]
     lo_a, hi_a = _swept_interval(tabs.my_hp, tabs.my_dp, sm)
@@ -378,16 +380,18 @@ def pair_bad(tabs: PairCCD, my_steps, all_steps, offset, gjk_iters) -> torch.Ten
     gm = torch.where(unc, m, float("inf")).contiguous()
     _, idx = cuda_topk.smallest_k(gm, s_slots)           # [U,P,R,S]
     sel_unc = torch.gather(unc, -1, idx)
-    if not bool(sel_unc.any()):
-        return over
-    p_idx = torch.arange(p, device=idx.device)[None, :, None, None]
-    r_idx = torch.arange(r, device=idx.device)[None, None, :, None]
-    sel_hulls = tabs.all_hulls[idx, p_idx, r_idx]        # [U,P,R,S,n,3]
-    sel_dhulls = tabs.all_dhulls[idx, p_idx, r_idx]
-    so = all_steps[idx][..., None, None]
-    swept_a = torch.cat([tabs.my_hull, tabs.my_hull + sm * tabs.my_dhull], dim=-2)
-    swept_b = torch.cat([sel_hulls, sel_hulls + so * sel_dhulls], dim=-2)
-    diff = geo.minkowski_diff(swept_a[:, :, :, None], swept_b).reshape(-1, 4 * n * n, 3)
-    lb = geo.batched_origin_dist(diff, gjk_iters).lb
-    ok = (lb > offset).reshape(idx.shape)
-    return over | torch.any(sel_unc & ~ok, dim=(1, 2, 3))
+
+    def certify():
+        p_idx = torch.arange(p, device=idx.device)[None, :, None, None]
+        r_idx = torch.arange(r, device=idx.device)[None, None, :, None]
+        sel_hulls = tabs.all_hulls[idx, p_idx, r_idx]    # [U,P,R,S,n,3]
+        sel_dhulls = tabs.all_dhulls[idx, p_idx, r_idx]
+        so = all_steps[idx][..., None, None]
+        swept_a = torch.cat([tabs.my_hull, tabs.my_hull + sm * tabs.my_dhull], dim=-2)
+        swept_b = torch.cat([sel_hulls, sel_hulls + so * sel_dhulls], dim=-2)
+        diff = geo.minkowski_diff(swept_a[:, :, :, None], swept_b).reshape(-1, 4 * n * n, 3)
+        lb = geo.batched_origin_dist(diff, gjk_iters).lb
+        ok = (lb > offset).reshape(idx.shape)
+        return over | torch.any(sel_unc & ~ok, dim=(1, 2, 3))
+
+    return graph.device_cond(sel_unc.any(), certify, lambda: over)

@@ -9,8 +9,12 @@ rows); one scalar time variable borders it:
                                 ds  = -A^-1 gs - dt * A^-1 b
 
 Systems with ns <= 64 factor and solve in one fused K3 + K4 launch and
-refine with K4 (`ops/cuda_chol.py`); larger ones use the block-tridiagonal
-factorization below.
+refine with K4 (`ops/cuda_chol.py`); larger ones (P >= 8) use the
+block-tridiagonal factorization below, its 18 x 18 diagonal blocks factored
+by K3 in plain mode and its solves block by block with
+`torch.linalg.solve_triangular`.  Neither syncs with the host nor calls the
+Cholesky library routines (MAGMA behind `cholesky_solve` aborts under CUDA
+graph capture), so the fused drivers can capture them.
 """
 
 from __future__ import annotations
@@ -29,10 +33,8 @@ _UNROLL_MAX = 64
 _BT_BLOCK = 18  # 6 stored rows x 3 coords: with 18-blocks A is block-tridiagonal
 
 
-def _factor_block_tridiag(a: torch.Tensor) -> torch.Tensor:
-    """Cholesky of the block-banded spline KKT, one 18x18 block step at a
-    time (L is block-bidiagonal).  Returns the dense [..., ns, ns] lower
-    factor; a non-PD block gives NaNs, as the JAX factorization does."""
+def _pad_blocks(a: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """[..., ns, ns] -> ([..., nb, k, nb, k] with an identity pad, nb)."""
     ns = a.shape[-1]
     nb = -(-ns // _BT_BLOCK)
     pad = nb * _BT_BLOCK - ns
@@ -44,10 +46,22 @@ def _factor_block_tridiag(a: torch.Tensor) -> torch.Tensor:
              torch.broadcast_to(eye_pad, batch + (pad, ns + pad))],
             -2,
         )
-    k = _BT_BLOCK
-    blocks = a.reshape(batch + (nb, k, nb, k))
+    return a.reshape(batch + (nb, _BT_BLOCK, nb, _BT_BLOCK)), nb
+
+
+def _factor_block_tridiag(a: torch.Tensor) -> torch.Tensor:
+    """Cholesky of the block-banded spline KKT, one 18x18 block step at a
+    time (L is block-bidiagonal; the JAX package's `lax.scan`).  Returns the
+    dense [..., ns, ns] lower factor; a non-PD block gives NaNs, as the JAX
+    factorization does: K3's plain mode (``gmw=False``) takes the square
+    root of a non-positive pivot, and the block's lower triangle is then
+    NaN (the NaNs of `jnp.linalg.cholesky`)."""
+    ns = a.shape[-1]
+    blocks, nb = _pad_blocks(a)
+    batch, k = a.shape[:-2], _BT_BLOCK
     full = a.new_zeros(batch + (nb, k, nb, k))
-    l_prev = torch.broadcast_to(torch.eye(k, dtype=a.dtype, device=a.device), batch + (k, k))
+    nan_block = torch.full((k, k), float("nan"), dtype=a.dtype, device=a.device).tril()
+    l_prev = None
     for b in range(nb):
         d_b = blocks[..., b, :, b, :]
         if b:
@@ -57,8 +71,8 @@ def _factor_block_tridiag(a: torch.Tensor) -> torch.Tensor:
             x = x.transpose(-1, -2)
             full[..., b, :, b - 1, :] = x
             d_b = d_b - x @ x.transpose(-1, -2)
-        l_b, info = torch.linalg.cholesky_ex(d_b)
-        l_b = torch.where((info == 0)[..., None, None], l_b, float("nan"))
+        l_b = cuda_chol.mod_chol(d_b.contiguous(), gmw=False)[0]
+        l_b = torch.where(torch.isfinite(l_b).all(-1).all(-1)[..., None, None], l_b, nan_block)
         full[..., b, :, b, :] = l_b
         l_prev = l_b
     return full.reshape(batch + (nb * k, nb * k))[..., :ns, :ns]
@@ -78,13 +92,30 @@ def _factor_and_solve(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, t
 
 
 def _factor_solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve L L^T x = b given `_factor_and_solve`'s factor."""
+    """Solve L L^T x = b given `_factor_and_solve`'s factor; b is [..., ns]
+    or [..., ns, r].  Past ns = 64 the factor is block-bidiagonal: a forward
+    and a backward substitution over its 18 x 18 blocks."""
     ns = l.shape[-1]
     if ns <= _UNROLL_MAX:
         return cuda_chol.chol_solve(l.contiguous(), b.contiguous())
     vec = b.ndim == l.ndim - 1
-    x = torch.cholesky_solve(b[..., None] if vec else b, l, upper=False)
-    return x[..., 0] if vec else x
+    rhs = b[..., None] if vec else b
+    blocks, nb = _pad_blocks(l)
+    k = _BT_BLOCK
+    rows = [rhs[..., i * k:(i + 1) * k, :] for i in range(nb)]
+    if nb * k > ns:
+        rows[-1] = torch.cat([rows[-1], rhs.new_zeros(rhs.shape[:-2] + (nb * k - ns, rhs.shape[-1]))],
+                             -2)
+    y = []
+    for i in range(nb):                                  # L y = b
+        r = rows[i] if not i else rows[i] - blocks[..., i, :, i - 1, :] @ y[-1]
+        y.append(torch.linalg.solve_triangular(blocks[..., i, :, i, :], r, upper=False))
+    x = [None] * nb
+    for i in reversed(range(nb)):                        # L^T x = y
+        r = y[i] if i == nb - 1 else y[i] - blocks[..., i + 1, :, i, :].transpose(-1, -2) @ x[i + 1]
+        x[i] = torch.linalg.solve_triangular(blocks[..., i, :, i, :].transpose(-1, -2), r, upper=True)
+    out = torch.cat(x, -2)[..., :ns, :]
+    return out[..., 0] if vec else out
 
 
 class ReducedKKT(NamedTuple):

@@ -5,9 +5,11 @@ reference's three phases: separating-plane generation, the spline Newton
 step with a CCD-clamped Armijo line search, and the per-piece slack Newton
 step with dual ascent; `admm_step_cached` also threads the persistent plane
 cache of ``optimal_plane=True``.  Each `lax.cond` of the JAX step is a
-Python branch here, i.e. one device-to-host sync: `armijo_spline` (step0
-accepted?), each further stage of a staged ladder, and the two gates inside
-the CCD.
+`runtime.graph.device_cond`: `armijo_spline` (step0 accepted?), each further
+stage of a staged ladder, the fleet's live-candidate gate and the gates
+inside the CCD.  In the host-stepped drivers each is a Python branch (one
+device-to-host sync); in the fused drivers' CUDA graph, both sides and a
+select.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from ..ops import energies as en
 from ..ops import geometry as geo
 from ..ops import gradients as gr
 from ..ops import kkt
+from ..runtime import graph
 from ..types import PlaneCache, Planes, Scene, SolverState, SplineConsts, StepDiag
 
 _ARMIJO_C = 1e-4   # Optimization3D_admm.h:537
@@ -108,8 +111,7 @@ def separate_planes_batch(
     """Fleet obstacle-plane tables with one GJK batch (K2) for all robots:
     the in-radius (segment, obstacle) candidates of the whole fleet compact
     to the ``plane_gjk_budget`` nearest.  ``splines`` [U,T,3] -> (planes
-    [U,P,R,K,...], overflow).  The live-candidate gate is a Python branch
-    (one host sync)."""
+    [U,P,R,K,...], overflow).  The live-candidate gate is a `device_cond`."""
     hulls = en.seg_cps(consts, splines)                     # [U,P,R,n,3]
     radius = cfg.offset + cfg.margin
     if cfg.broadphase_coarse_k > 0 and cfg.broadphase_piece_budget > 0:
@@ -122,15 +124,20 @@ def separate_planes_batch(
                                   coarse_k=cfg.broadphase_coarse_k)
         bp_overflow = torch.zeros((), dtype=torch.bool, device=splines.device)
     shape = cand.mask.shape                                 # [U,P,R,K]
-    if not bool(cand.mask.any()):
+
+    def live():
+        c, d, ok, overflow = _planes_from_candidates(
+            cfg, hulls.reshape((-1,) + hulls.shape[-2:]), scene.points, cand
+        )
+        return (Planes(c=c.reshape(shape + (3,)), d=d.reshape(shape), mask=ok.reshape(shape)),
+                overflow | bp_overflow)
+
+    def dead():
         # no in-radius candidate fleet-wide: no GJK, no plane
         return Planes(c=splines.new_zeros(shape + (3,)), d=splines.new_zeros(shape),
                       mask=torch.zeros_like(cand.mask)), bp_overflow
-    c, d, ok, overflow = _planes_from_candidates(
-        cfg, hulls.reshape((-1,) + hulls.shape[-2:]), scene.points, cand
-    )
-    return Planes(c=c.reshape(shape + (3,)), d=d.reshape(shape),
-                  mask=ok.reshape(shape)), overflow | bp_overflow
+
+    return graph.device_cond(cand.mask.any(), live, dead)
 
 
 def separate_planes(
@@ -246,10 +253,11 @@ def staged_ladder_ok(eval_ok, ladder: torch.Tensor, stage: int = 8) -> torch.Ten
     ok1 = eval_ok(ladder[:n1])
     if n1 == s:
         return ok1
-    if bool(torch.all(torch.any(ok1, dim=0))):
-        ok2 = torch.zeros((s - n1,) + ok1.shape[1:], dtype=torch.bool, device=ok1.device)
-    else:
-        ok2 = staged_ladder_ok(eval_ok, ladder[n1:], stage=2 * stage)
+    ok2 = graph.device_cond(
+        torch.all(torch.any(ok1, dim=0)),
+        lambda: torch.zeros((s - n1,) + ok1.shape[1:], dtype=torch.bool, device=ok1.device),
+        lambda: staged_ladder_ok(eval_ok, ladder[n1:], stage=2 * stage),
+    )
     return torch.cat([ok1, ok2], dim=0)
 
 
@@ -315,12 +323,12 @@ def armijo_spline(
     def accepted(step):
         return e0 - _ARMIJO_C * sd.wolfe * step >= trial_energy(step)
 
-    if bool(accepted(step0)):
-        step = step0
-    else:
+    def ladder():
         steps = step_candidates(cfg, t0.dtype, t0.device) * step0
         ok = _with_floor_fallback(staged_ladder_ok(vmap(accepted), steps))
-        step = steps.gather(0, _first_true(ok)[None])[0]
+        return steps.gather(0, _first_true(ok)[None])[0]
+
+    step = graph.device_cond(accepted(step0), lambda: step0, ladder)
     return state.spline + step * sd.direction, t0 + step * dt, step
 
 

@@ -4,11 +4,14 @@ Port of `trajopt_tpu/solver/multi.py` for one device.  The robot axis U is
 a batch axis written out: the per-robot gradients, Hessians, KKT systems,
 slack updates and CCD tables of the whole fleet go through each op (and
 each kernel) in one call.  The reference's collectives (`_gsum`, `_gany`,
-`_gmin` over ``axis_name``) are plain reductions here, and every
-`lax.cond` / `while_loop` of its step is a Python branch, i.e. a host sync:
-the live-pair gates of the obstacle and pair planes, the plateau and GJK
-gates of both CCDs, the GJK gate of each decoupled shrink round and the
-round's own loop test, and the coupled Armijo's step0 test.
+`_gmin` over ``axis_name``) are plain reductions here.  Every `lax.cond` of
+its step is a `runtime.graph.device_cond` (a Python branch, i.e. a host
+sync, in the host-stepped drivers; both sides and a select in the fused
+drivers' CUDA graph): the live-pair gates of the obstacle and pair planes,
+the plateau and GJK gates of both CCDs, the GJK gate of each decoupled
+shrink round, and the coupled Armijo's step0 test.  The decoupled shrink
+`while_loop` is `graph.fixed_rounds`, at most ``max_line_search`` guarded
+rounds.
 
 ``optimal_plane=True`` refines every obstacle and robot-pair plane, and
 `multi_admm_step_cached` threads the persistent plane caches of both.  Not
@@ -33,6 +36,7 @@ from ..ops import geometry as geo
 from ..ops import gradients as gr
 from ..ops import kkt
 from ..ops import splines as sp
+from ..runtime import graph
 from ..types import (PairPlaneCache, PlaneCache, Planes, Scene, SolverState, SplineConsts,
                      StepDiag, concat_planes, empty_pair_plane_cache, empty_plane_cache,
                      init_state)
@@ -98,63 +102,69 @@ def self_planes(consts: SplineConsts, cfg: TrajOptConfig, splines: torch.Tensor,
     nd2, idx = cuda_topk.smallest_k(d2, ks)                  # [U,P,R,Ks]
     flat_mask = (nd2 <= radius * radius).reshape(-1)
     overflow = flat_mask.sum() > budget
-    if not bool(flat_mask.any()):
+    geo.check_gjk_route(cfg, device)
+
+    def live():
+        p_idx = torch.arange(p, device=device)[None, :, None, None]
+        r_idx = torch.arange(r, device=device)[None, None, :, None]
+        other = hulls[idx, p_idx, r_idx]                     # [U,P,R,Ks,n,3]
+        d2f = torch.where(flat_mask, nd2.reshape(-1), float("inf"))
+        # the JAX step calls lax.top_k directly here (not the Pallas kernel)
+        _, sel = cuda_topk.smallest_k_plain(d2f, budget)
+        mine = hulls.reshape(-1, n, 3)[sel // ks]            # [B,n,3]
+        other = other.reshape(-1, n, 3)[sel]
+        hd = geo.batched_origin_dist(geo.minkowski_diff(mine, other), cfg.gjk_iters)
+        c = hd.v / torch.clamp(hd.dist, min=1e-12)[:, None]
+        d0 = (-torch.einsum("nmd,nd->nm", other, c)).amin(dim=1)
+        d1 = (-torch.einsum("nmd,nd->nm", mine, c)).amax(dim=1)
+        d = geo.optimal_d(mine, other, c, 0.5 * (d0 + d1), cfg.offset, cfg.margin, 8)
+        if cache is not None:
+            match = idx[..., :, None] == cache.partner[..., None, :]     # [U,P,R,Ks,Ks]
+            slot = torch.argmax(match.to(torch.uint8), dim=-1)           # first match
+            hit = match.any(-1).reshape(-1)[sel]
+            warm_c = torch.gather(cache.c, 3, slot[..., None].expand(shape + (3,))).reshape(-1, 3)[sel]
+            warm_d = torch.gather(cache.d, 3, slot).reshape(-1)[sel]
+            wa = torch.einsum("nmd,nd->nm", mine, warm_c) + warm_d[:, None]
+            wb = -(torch.einsum("nmd,nd->nm", other, warm_c) + warm_d[:, None])
+            warm_ok = hit & (wa > 0.5 * cfg.offset).all(1) & (wb > 0.5 * cfg.offset).all(1)
+            c = torch.where(warm_ok[:, None], warm_c, c)
+            d = torch.where(warm_ok, warm_d, d)
+        if cfg.optimal_plane:
+            c_r, d_r = geo.refine_pair_plane(mine, other, c, d, cfg.offset, cfg.margin)
+            good = torch.isfinite(c_r).all(-1) & torch.isfinite(d_r)
+            c = torch.where(good[:, None], c_r, c)
+            d = torch.where(good, d_r, d)
+        # near-contact feasibility clamp on this robot's own side (see
+        # admm._fit_obstacle_planes): keeps the plane live instead of infeasible
+        my_smin = torch.einsum("nmd,nd->nm", mine, c).amin(dim=1)
+        d_store = torch.maximum(d - 0.5 * cfg.offset, 1e-3 * cfg.margin - my_smin)
+        valid = hd.dist <= cfg.offset + 2 * cfg.margin
+        c_full = torch.zeros((nf, 3), dtype=dtype, device=device).index_copy(0, sel, c)
+        d_full = torch.zeros((nf,), dtype=dtype, device=device).index_copy(0, sel, d_store)
+        ok_full = torch.zeros((nf,), dtype=torch.bool, device=device).index_copy(
+            0, sel, flat_mask[sel] & valid
+        )
+        planes = Planes(c=c_full.reshape(shape + (3,)), d=d_full.reshape(shape),
+                        mask=ok_full.reshape(shape))
+        if cache is None:
+            return planes
+        # the new cache keys each slot's midplane offset
+        d_mid = torch.zeros((nf,), dtype=dtype, device=device).index_copy(0, sel, d)
+        return planes, d_mid.reshape(shape)
+
+    def dead():
         # no robot pair in radius: no GJK, no plane
         planes = Planes(c=torch.zeros(shape + (3,), dtype=dtype, device=device),
                         d=torch.zeros(shape, dtype=dtype, device=device),
                         mask=torch.zeros(shape, dtype=torch.bool, device=device))
-        if cache is None:
-            return planes, overflow
-        return planes, overflow, PairPlaneCache(
-            partner=torch.full(shape, -1, dtype=idx.dtype, device=device), c=planes.c,
-            d=planes.d)
-    geo.check_gjk_route(cfg, device)
-    p_idx = torch.arange(p, device=device)[None, :, None, None]
-    r_idx = torch.arange(r, device=device)[None, None, :, None]
-    other = hulls[idx, p_idx, r_idx]                         # [U,P,R,Ks,n,3]
-    d2f = torch.where(flat_mask, nd2.reshape(-1), float("inf"))
-    # the JAX step calls lax.top_k directly here (not the Pallas kernel)
-    _, sel = cuda_topk.smallest_k_plain(d2f, budget)
-    mine = hulls.reshape(-1, n, 3)[sel // ks]                # [B,n,3]
-    other = other.reshape(-1, n, 3)[sel]
-    hd = geo.batched_origin_dist(geo.minkowski_diff(mine, other), cfg.gjk_iters)
-    c = hd.v / torch.clamp(hd.dist, min=1e-12)[:, None]
-    d0 = (-torch.einsum("nmd,nd->nm", other, c)).amin(dim=1)
-    d1 = (-torch.einsum("nmd,nd->nm", mine, c)).amax(dim=1)
-    d = geo.optimal_d(mine, other, c, 0.5 * (d0 + d1), cfg.offset, cfg.margin, 8)
-    if cache is not None:
-        match = idx[..., :, None] == cache.partner[..., None, :]     # [U,P,R,Ks,Ks]
-        slot = torch.argmax(match.to(torch.uint8), dim=-1)           # first match
-        hit = match.any(-1).reshape(-1)[sel]
-        warm_c = torch.gather(cache.c, 3, slot[..., None].expand(shape + (3,))).reshape(-1, 3)[sel]
-        warm_d = torch.gather(cache.d, 3, slot).reshape(-1)[sel]
-        wa = torch.einsum("nmd,nd->nm", mine, warm_c) + warm_d[:, None]
-        wb = -(torch.einsum("nmd,nd->nm", other, warm_c) + warm_d[:, None])
-        warm_ok = hit & (wa > 0.5 * cfg.offset).all(1) & (wb > 0.5 * cfg.offset).all(1)
-        c = torch.where(warm_ok[:, None], warm_c, c)
-        d = torch.where(warm_ok, warm_d, d)
-    if cfg.optimal_plane:
-        c_r, d_r = geo.refine_pair_plane(mine, other, c, d, cfg.offset, cfg.margin)
-        good = torch.isfinite(c_r).all(-1) & torch.isfinite(d_r)
-        c = torch.where(good[:, None], c_r, c)
-        d = torch.where(good, d_r, d)
-    # near-contact feasibility clamp on this robot's own side (see
-    # admm._fit_obstacle_planes): keeps the plane live instead of infeasible
-    my_smin = torch.einsum("nmd,nd->nm", mine, c).amin(dim=1)
-    d_store = torch.maximum(d - 0.5 * cfg.offset, 1e-3 * cfg.margin - my_smin)
-    valid = hd.dist <= cfg.offset + 2 * cfg.margin
-    c_full = torch.zeros((nf, 3), dtype=dtype, device=device).index_copy(0, sel, c)
-    d_full = torch.zeros((nf,), dtype=dtype, device=device).index_copy(0, sel, d_store)
-    ok_full = torch.zeros((nf,), dtype=torch.bool, device=device).index_copy(
-        0, sel, flat_mask[sel] & valid
-    )
-    planes = Planes(c=c_full.reshape(shape + (3,)), d=d_full.reshape(shape),
-                    mask=ok_full.reshape(shape))
+        return planes if cache is None else (planes, planes.d)
+
+    out = graph.device_cond(flat_mask.any(), live, dead)
     if cache is None:
-        return planes, overflow
-    d_mid = torch.zeros((nf,), dtype=dtype, device=device).index_copy(0, sel, d)
+        return out, overflow
+    planes, d_mid = out
     return planes, overflow, PairPlaneCache(
-        partner=torch.where(planes.mask, idx, -1), c=planes.c, d=d_mid.reshape(shape))
+        partner=torch.where(planes.mask, idx, -1), c=planes.c, d=d_mid)
 
 
 # ---------------------------------------------------------------------------
@@ -193,7 +203,8 @@ def decoupled_ccd_steps(consts: SplineConsts, cfg: TrajOptConfig, splines, direc
     """[U] per-robot steps: the pairwise shrink fixpoint (a robot whose
     pairs are not all certified shrinks by 0.8, at most ``max_line_search``
     rounds, then freezes at 0), min the per-robot rung-floored obstacle
-    limit.  Each round is one host sync."""
+    limit.  The rounds are `graph.fixed_rounds` (the reference's
+    `while_loop`)."""
     geo.check_gjk_route(cfg, splines.device)
     u = splines.shape[0]
     hulls = en.seg_cps(consts, splines)
@@ -203,11 +214,12 @@ def decoupled_ccd_steps(consts: SplineConsts, cfg: TrajOptConfig, splines, direc
                                   min(cfg.max_self_planes, max(u - 1, 1)))
     steps = torch.ones((u,), dtype=splines.dtype, device=splines.device)
     bad = ccd_ops.pair_bad(tabs, steps, steps, cfg.offset, cfg.gjk_iters)
-    rounds = 0
-    while rounds < cfg.max_line_search and bool(bad.any()):
+
+    def shrink(steps, bad):
         steps = torch.where(bad, steps * _SHRINK, steps)
-        bad = ccd_ops.pair_bad(tabs, steps, steps, cfg.offset, cfg.gjk_iters)
-        rounds += 1
+        return steps, ccd_ops.pair_bad(tabs, steps, steps, cfg.offset, cfg.gjk_iters)
+
+    steps, bad = graph.fixed_rounds(cfg.max_line_search, lambda s, b: b.any(), shrink, steps, bad)
     # robots still uncertified freeze at 0 (shrinking a robot's interval
     # only shrinks swept hulls, so this never invalidates another's)
     steps = torch.where(bad, torch.zeros_like(steps), steps)
@@ -294,17 +306,18 @@ def _coupled_update(consts, cfg, state, planes, ls, red, scene):
 
     e0 = fleet_energy(torch.zeros((), dtype=t0.dtype, device=t0.device))
     e_step0 = fleet_energy(step0)
-    if bool(e0 - _ARMIJO_C * wolfe * step0 >= e_step0):
-        step, e_acc = step0, e_step0
-    else:
+
+    def accepted(step):
+        return e0 - _ARMIJO_C * wolfe * step >= fleet_energy(step)
+
+    def armijo_ladder():
         ladder = admm.step_candidates(cfg, t0.dtype, t0.device) * step0   # [S]
-
-        def accepted(step):
-            return e0 - _ARMIJO_C * wolfe * step >= fleet_energy(step)
-
         ok = admm.staged_ladder_ok(vmap(accepted), ladder)
-        step = ladder[admm._first_true(admm._with_floor_fallback(ok))]
-        e_acc = fleet_energy(step)
+        step = ladder.gather(0, admm._first_true(admm._with_floor_fallback(ok))[None])[0]
+        return step, fleet_energy(step)
+
+    step, e_acc = graph.device_cond(e0 - _ARMIJO_C * wolfe * step0 >= e_step0,
+                                    lambda: (step0, e_step0), armijo_ladder)
     spline = state.spline + step * directions
     piece_time = state.piece_time + step * dt[0]
     return spline, piece_time, step.expand(u), step0.expand(u), gnorm, e_acc
