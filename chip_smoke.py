@@ -62,7 +62,23 @@ Phases, each reported on its own lines with the seconds it took:
    row with ``optimal_plane``), pairwise clearance by K2, host syncs =
    replays + 2 final reads, kernel nodes per capture, warm-up and capture
    ms, wall ms per iteration beside the host-stepped solve's, and device
-   busy and idle share over one replay.
+   busy and idle share over one replay;
+7. scenario batches and sharding: `solve_fused_batch` at bench_scale.py's
+   batches of 16 and 1024 jittered bridge scenarios (2000 points, P=4, 50
+   iterations), three of the 16 against their own `solve_fused`, every
+   scenario's clearance; the convergence gate (16 scenarios of phase 3's
+   problem, default stop on the mean gnorm, scenario 0 against the C++
+   row); `solve_fused_batch_multi` at bench_scale.py's 4 and 16 fleets of
+   the 4-robot cross (coupled, and decoupled at 4), fleets 0 and B-1
+   against their own `solve_fused_multi`, every fleet's pair clearance by
+   K2 cross-checked by K5; each with warm-up and capture ms, replay ms per
+   iteration, scenario-iterations per second, busy and idle share over one
+   replay and kernel nodes per capture; then sharding on a single-rank NCCL
+   group: the 64-robot cross's sharded step (3 steps, both modes) and
+   `solve_fused_multi(axis_name=...)` bit-equal to the unsharded ones,
+   the 2-D mesh step, the scenario-sharded solver, and
+   ``torchrun --nproc-per-node 1 ... cli.multi --mesh-devices 1`` against
+   the unsharded CLI.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -229,10 +245,170 @@ def optimal_plane_inputs(device):
     return topk, gjk
 
 
+BATCH_KERNELS = (("cuda_topk", "smallest_k"), ("cuda_gjk", "gjk_exact"), ("cuda_chol", "mod_chol"),
+                 ("cuda_chol", "chol_solve"), ("cuda_chol", "factor_solve"))
+
+
+def _dims(args) -> str:
+    return " ".join(f"[{','.join(map(str, a.shape))}]" if hasattr(a, "shape") else str(a)
+                    for a in args)
+
+
+@functools.lru_cache(maxsize=None)
+def batch_call_inputs(device):
+    """The inputs that phase 7's batch paths hand K1-K4 and the fused
+    launch, one call of each shape: one step in the select form (both sides
+    of every branch, as the CUDA graph holds them) from the start of each
+    problem of phase 7 (a) (B = 16 and 1024), (b) (the gate batch) and (c)
+    (fleets coupled at B = 4 and 16, decoupled at B = 4).  Returns
+    {kernel: [(label, args, kwargs)]}, the tensors cloned; made once a run."""
+    import importlib
+
+    import torch
+    from trajopt_tpu_torch import types as tt
+    from trajopt_tpu_torch.runtime import graph
+    from trajopt_tpu_torch.solver import driver
+
+    problems = []
+    for b in BATCH_SIZES:
+        cfg, _, _, consts, scene, states = build_batch(b, device)
+        problems.append((f"batch{b} single", driver.fused_step(consts, cfg, scene, False,
+                                                               interact=False), states))
+    cfg, _, _, consts, scene, states = build_batch(GATE_BATCH, device, n_points=N_POINTS, stop=None,
+                                                   unjittered_first=True)
+    problems.append((f"batch{GATE_BATCH} gate", driver.fused_step(consts, cfg, scene, False,
+                                                                  interact=False), states))
+    for b, coupled in [(b, True) for b in FLEET_BATCHES] + [(FLEET_BATCHES[0], False)]:
+        cfg, _, _, consts, scene, states = build_fleet_batch(b, device)
+        flat = tt.SolverState(*(x.reshape((-1,) + tuple(x.shape[2:])) for x in states))
+        problems.append((f"batch{b} u{BATCH_FLEET} {'coupled' if coupled else 'decoupled'}",
+                         driver.fused_step(consts, cfg, scene, coupled, groups=b), flat))
+
+    mods = {m: importlib.import_module(f"trajopt_tpu_torch.ops.{m}") for m, _ in BATCH_KERNELS}
+    out, seen, real = {name: [] for _, name in BATCH_KERNELS}, set(), {}
+
+    def spy(name, label):
+        def call(*args, **kwargs):
+            key = (name, _dims(args), tuple(sorted(kwargs.items())))
+            if key not in seen:
+                seen.add(key)
+                kw = "".join(f" {k}={v}" for k, v in sorted(kwargs.items()))
+                out[name].append((f"phase 7 {label} {_dims(args)}{kw}",
+                                  tuple(a.clone() if torch.is_tensor(a) else a for a in args),
+                                  dict(kwargs)))
+            return real[name](*args, **kwargs)
+        return call
+
+    for label, step, state in problems:
+        for m, name in BATCH_KERNELS:
+            real[name] = getattr(mods[m], name)
+            setattr(mods[m], name, spy(name, label))
+        try:
+            with graph.select_form():
+                step((state,))
+        finally:
+            for m, name in BATCH_KERNELS:
+                setattr(mods[m], name, real[name])
+    _sync(device)
+    return out
+
+
+def batch_chol_timing_inputs(device):
+    """`chol_callsite_inputs` entries at phase 7's K3/K4/fused call shapes
+    (`batch_call_inputs`): the PSD repair's blocks (h, None), each fused
+    launch's (h, b), and for each K4 call (L L^T, b)."""
+    calls = batch_call_inputs(device)
+    return ([(a[0], None) for _, a, _ in calls["mod_chol"]]
+            + [(a[0], a[1]) for _, a, _ in calls["factor_solve"]]
+            + [((a[0] @ a[0].transpose(-1, -2)).contiguous(), a[1]) for _, a, _ in calls["chol_solve"]])
+
+
+def check_batch_chol(device, log):
+    """K3, K4 and the fused kernel on phase 7's own inputs
+    (`batch_call_inputs`), each call as the path makes it (its ``gmw`` and
+    ``want_l``), against the plain version on the same inputs: e within
+    1e-4 relative of plain's and L too, |L L^T - (h + diag e)| within
+    1e-5 |h| or twice plain's; x within 1e-3 relative of plain's or its
+    residual (on h + diag e for the fused launch, on L L^T for K4) within
+    1e-5 or twice plain's; the fused launch bit-equal to K3 then K4 (the
+    same arithmetic in one launch) and ``want_l=False`` changing no e or x.
+    Returns the largest abs errors (K3, K4, fused)."""
+    import torch
+    from trajopt_tpu_torch.ops import cuda_chol
+
+    calls = batch_call_inputs(device)
+    errs = [0.0, 0.0, 0.0]
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30)) if b.numel() else 0.0
+
+    def factor_check(name, h, gmw):
+        l, e = cuda_chol.mod_chol(h, gmw=gmw)
+        _, e_only = cuda_chol.mod_chol(h, gmw=gmw, want_l=False)
+        _sync(device)
+        pl, pe = cuda_chol.mod_chol_plain(h, gmw=gmw)
+        check(torch.equal(e_only, e), f"K3 {name}: want_l=False changes e")
+        ee = rel(e, pe) if bool((pe != 0).any()) else float(e.abs().max())
+        el = rel(l, pl)
+        hd = h.double()
+        scale = float(torch.linalg.matrix_norm(hd).max()) or 1.0
+        target = hd + torch.diag_embed(e.double())
+        rec = float(torch.linalg.matrix_norm(l.double() @ l.double().transpose(-1, -2) - target).max()) / scale
+        rec_plain = float(torch.linalg.matrix_norm(
+            pl.double() @ pl.double().transpose(-1, -2) - hd - torch.diag_embed(pe.double())).max()) / scale
+        check(ee <= 1e-4, f"K3 {name}: e differs from plain by {ee:.3g} relative")
+        check(el <= 1e-4, f"K3 {name}: L differs from plain by {el:.3g} relative")
+        check(rec <= max(1e-5, 2.0 * rec_plain),
+              f"K3 {name}: |L L^T - (h + diag e)| / |h| = {rec:.3g} (plain {rec_plain:.3g})")
+        errs[0] = max(errs[0], float((l - pl).abs().max()), float((e - pe).abs().max()))
+        return l, e, pe, ee, el, rec
+
+    for name, (h,), kw in calls["mod_chol"]:
+        l, e, pe, ee, el, rec = factor_check(name, h, kw.get("gmw", True))
+        log(f"  K3 mod_chol {name}: e vs plain {ee:.2e}, L vs plain {el:.2e}, recon {rec:.2e} "
+            f"({int((pe != 0).any(-1).sum())} boosted blocks of {pe.shape[:-1].numel()})")
+    for name, (l, rhs), _ in calls["chol_solve"]:
+        x = cuda_chol.chol_solve(l, rhs)
+        _sync(device)
+        px = cuda_chol.chol_solve_plain(l, rhs)
+        dx = rel(x, px)
+        ld = l.double()
+        res, res_plain = (_residual(ld, v.double(), rhs.double()) for v in (x, px))
+        check(dx <= 1e-3 or res <= max(1e-5, 2.0 * res_plain),
+              f"K4 {name}: x differs from plain by {dx:.3g} relative, residual {res:.3g} "
+              f"(plain {res_plain:.3g})")
+        errs[1] = max(errs[1], float((x - px).abs().max()))
+        log(f"  K4 chol_solve {name}: x vs plain {dx:.2e}, residual {res:.2e} (plain {res_plain:.2e})")
+    for name, (h, rhs), kw in calls["factor_solve"]:
+        gmw = kw.get("gmw", True)
+        l, e, pe, ee, el, rec = factor_check(name, h, gmw)
+        lf, ef, xf = cuda_chol.factor_solve(h, rhs, gmw=gmw)
+        none, ef2, xf2 = cuda_chol.factor_solve(h, rhs, gmw=gmw, want_l=False)
+        x = cuda_chol.chol_solve(l, rhs)
+        _sync(device)
+        check(torch.equal(lf, l) and torch.equal(ef, e) and torch.equal(xf, x),
+              f"fused {name}: differs from K3 then K4")
+        check(none is None and torch.equal(ef2, ef) and torch.equal(xf2, xf),
+              f"fused {name}: want_l=False changes e or x")
+        pl, pe2, px = cuda_chol.factor_solve_plain(h, rhs, gmw=gmw)
+        dx = rel(xf, px)
+        system = h.double() + torch.diag_embed(pe2.double())
+        res, res_plain = (_system_residual(system, v.double(), rhs.double()) for v in (xf, px))
+        check(dx <= 1e-3 or res <= max(1e-5, 2.0 * res_plain),
+              f"fused {name}: x differs from plain by {dx:.3g} relative, residual {res:.3g} "
+              f"(plain {res_plain:.3g})")
+        errs[2] = max(errs[2], float((lf - pl).abs().max()), float((ef - pe2).abs().max()),
+                      float((xf - px).abs().max()))
+        log(f"  fused factor_solve {name}: bit-equal to K3 then K4; e vs plain {ee:.2e}, L vs "
+            f"plain {el:.2e}, x vs plain {dx:.2e}, residual {res:.2e} (plain {res_plain:.2e})")
+    return tuple(errs)
+
+
 def topk_cases(device, rng):
     """(name, x, k) at the single-UAV and 64-robot slice shapes plus ties and
     short rows, then `testing.topk_edge_rows`, then the ``optimal_plane``
-    path's own call shapes (`optimal_plane_inputs`)."""
+    path's own call shapes (`optimal_plane_inputs`), then phase 7's
+    (`batch_call_inputs`)."""
     import numpy as np
     from trajopt_tpu_torch.testing import EDGE_SEED, topk_edge_rows
 
@@ -278,7 +454,8 @@ def topk_cases(device, rng):
         ("pair ccd level2 [64,4,8,8] k=5", t(dists((FLEET, FLEET_PIECES, 8, 8), 0.3)), 5),
         ("obstacle ccd segments [1,2048] k=64", t(dists((1, 2048), 0.5)), 64),
         ("obstacle ccd level1 [64,4000] k=17", t(dists((64, FLEET_POINTS), 0.3)), 17),
-    ] + more + edges + optimal_plane_inputs(device)[0]
+    ] + more + edges + optimal_plane_inputs(device)[0] + [
+        (name, x.contiguous(), k) for name, (x, k), _ in batch_call_inputs(device)["smallest_k"]]
 
 
 def check_topk(device, rng, log):
@@ -312,7 +489,10 @@ def gjk_cases(device, rng, pair_diffs):
     """(name, u, iters, brute rows): the brute-force oracle runs on the
     first ``brute rows`` problems of each case (it is cubic-to-quartic in m).
     The last cases are the ``optimal_plane`` full tables
-    (`optimal_plane_inputs`)."""
+    (`optimal_plane_inputs`), then phase 7's inputs (`batch_call_inputs`),
+    held by `check_gjk_paths`: on the solver's own data the lb of a few
+    problems parts from plain's (the CCD's, by up to 2.3e-4 x max|u| on an
+    H100, either way), as on the pair cases of `gjk_callsite_cases`."""
     import numpy as np
     from trajopt_tpu_torch.testing import EDGE_SEED, gjk_edge_sets
 
@@ -342,7 +522,8 @@ def gjk_cases(device, rng, pair_diffs):
     ] + gjk_callsite_cases(device) + [
         (name, t(u), iters, n_brute)
         for name, u, iters, n_brute in gjk_edge_sets(np.random.default_rng(EDGE_SEED + 1))
-    ] + optimal_plane_inputs(device)[1]
+    ] + optimal_plane_inputs(device)[1] + [
+        (name, u, iters, None) for name, (u, iters), _ in batch_call_inputs(device)["gjk_exact"]]
 
 
 def gjk_callsite_cases(device):
@@ -429,8 +610,12 @@ def check_gjk_paths(name, u, iters, hd, ref, scale, log):
     tight as plain's: median and maximum within twice plain's + 1e-5 x
     max|u|.  The control: the kernel one round short of its own last round
     on this data (the fewest iterations whose output equals the full run's,
-    less one) must fail that test.  Returns the largest |kernel - plain| on
-    the separated problems."""
+    less one) must fail that test.  On phase 7's inputs (names "phase 7
+    ..."), the solver's own data, most problems stop within a few rounds
+    and the few that run longer leave brackets at one round short that the
+    test cannot tell from the full run's: there the control is logged, not
+    required.  Returns the largest |kernel - plain| on the separated
+    problems."""
     import torch
     from trajopt_tpu_torch.ops import cuda_gjk
 
@@ -461,14 +646,17 @@ def check_gjk_paths(name, u, iters, hd, ref, scale, log):
     last = next(r for r in range(1, iters + 1) if all(
         torch.equal(a, b) for a, b in zip(cuda_gjk.gjk_exact(u, r), hd)))
     short = faults(cuda_gjk.gjk_exact(u, last - 1)) if last > 1 else []
-    check(short, f"K2 {name}: the tightness test does not tell {last - 1} iterations from {iters}")
+    control = not name.startswith("phase 7")
+    check(short or not control,
+          f"K2 {name}: the tightness test does not tell {last - 1} iterations from {iters}")
     parted = int(((hd.lb - ref.lb).abs() > 1e-5 * scale)[sep].sum())
+    told = f"fails: {short[0]}" if short else "is not told from the full run (not required)"
     log(f"  K2 gjk_exact {name}: |dist-plain|/scale {e_dist:.2e}; lb of {parted} of "
         f"{int(sep.sum())} separated problems parts from plain's by > 1e-5 x scale (max "
         f"{float(((hd.lb - ref.lb).abs() / scale)[sep].max()):.2e}); dist-lb median/max /scale kernel "
         f"{float(width(hd).median()):.1e}/{float(width(hd).max()):.1e}, plain "
         f"{float(width(ref).median()):.1e}/{float(width(ref).max()):.1e}; control at {last - 1} of "
-        f"{last} rounds fails: {short[0]}; against the float64 converged distance: max unsoundness "
+        f"{last} rounds {told}; against the float64 converged distance: max unsoundness "
         f"kernel {unsound['kernel']:.1e}, plain {unsound['plain']:.1e}")
     return float(torch.maximum((hd.dist - ref.dist).abs(), (hd.lb - ref.lb).abs())[sep].max())
 
@@ -887,6 +1075,10 @@ def check_kernels(device, log, seed=0, pair_diffs=None):
     errs["chol_solve"], errs["factor_solve"] = check_solve(device, rng, factors, log)
     errs["factor_solve"] = max(errs["factor_solve"], check_pd_solve(device, log))
     lap("K4 and fused checks")
+    batch = check_batch_chol(device, log)
+    for name, err in zip(("mod_chol", "chol_solve", "factor_solve"), batch):
+        errs[name] = max(errs[name], err)
+    lap("K3, K4 and fused checks on phase 7's inputs")
     return errs
 
 
@@ -1449,6 +1641,7 @@ def fused_phase(device, host_rows, log):
     from trajopt_tpu_torch.solver import driver, multi
     from trajopt_tpu_torch.testing import OPTIMAL_PLANE_JAX_ROWS
 
+    fused_rows = {}
     for label, build, coupled, (mode, ref_key) in fused_cases():
         cfg, ops, cloud, consts, scene, state0 = build(device)
         host = host_rows[label]
@@ -1471,6 +1664,7 @@ def fused_phase(device, host_rows, log):
         quality = (single_quality if coupled is None else fleet_quality)(ops, cloud, state)
         row = {"iters": it, "gnorm": out["gnorm"], "offset": cfg.offset,
                "converged": it < max_iters and out["gnorm"] < cfg.stop, **quality}
+        fused_rows[label] = dict(row, state=state)
         diff = max(float(np.abs(row["spline"] - host["spline"]).max()),
                    float(np.abs(np.asarray(row["piece_time"]) - np.asarray(host["piece_time"])).max()))
         log(f"  {key}: iters {it} (host-stepped {host['iters']}), gnorm {out['gnorm']:.4g}, "
@@ -1528,6 +1722,433 @@ def fused_phase(device, host_rows, log):
         log(f"    10 replays, ms each (host clock): with the flag read after each {read_ms:.4f}, "
             f"back to back with one read at the end {back_ms:.4f} (a read costs "
             f"{read_ms - back_ms:.4f})")
+    return fused_rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: batches and sharding
+# ---------------------------------------------------------------------------
+
+BATCH_SIZES = (16, 1024)    # bench_scale.py's single-UAV batches: the smallest and the largest
+FLEET_BATCHES = (4, 16)     # bench_scale.py's coupled fleet batches (run_batched)
+BATCH_POINTS = 2000         # bench_scale.py's n_points for both
+BATCH_ITERS = 50            # bench_scale.py's fixed iteration count (stop = 0)
+BATCH_FLEET = 4             # robots a fleet in bench_scale.py's run_batched
+GATE_BATCH = 16             # the convergence gate's batch (scenario 0 unjittered)
+# a batch's scenario (fleet) against its own solve after 50 iterations, max
+# abs over splines and piece times (metres, seconds).  The same math in
+# float32 rounds otherwise at other batch shapes: phase 7 (a) prints how a
+# single UAV's difference grows while the path moves (0.048 at iteration 10
+# on the card, a different rung taken) and shrinks once both solves have
+# converged to one trajectory (9e-4 at 50 on an H100, PERF.md): 5x that, 5% of
+# the offset
+BATCH_MATCH_TOL = 5e-3
+
+
+def jittered(state, b, device, unjittered_first=False):
+    """``b`` copies of ``state`` with bench_scale.py's spline jitter
+    (normal, scale 1e-3, `np.random.default_rng(0)`), stacked [b, ...]."""
+    import numpy as np
+    import torch
+    from trajopt_tpu_torch import types as tt
+
+    deltas = np.random.default_rng(0).normal(scale=1e-3, size=(b,) + tuple(state.spline.shape))
+    if unjittered_first:
+        deltas[0] = 0.0
+    states = tt.stack([state] * b)
+    return states._replace(spline=states.spline + torch.as_tensor(deltas, dtype=state.spline.dtype,
+                                                                  device=device))
+
+
+def build_batch(b, device, n_points=BATCH_POINTS, stop=0.0, unjittered_first=False):
+    """bench_scale.py's run_batched_single problem: the bridge at P=4 (2000
+    points), phase 3's config with ``stop`` (0: fixed iterations; None: the
+    default), ``b`` jittered scenarios sharing the scene."""
+    import torch
+
+    cfg, ops, cloud, consts, scene, state0 = build_problem(4, device, torch.float32)
+    cfg = cfg if stop is None else cfg.replace(stop=stop)
+    if n_points != N_POINTS:
+        from trajopt_tpu_torch import types as tt
+        from trajopt_tpu_torch.scenes import generators as gen
+
+        cloud, _ = gen.bridge_scene(n_points=n_points, seed=0, n_pieces=4)
+        scene = tt.make_scene(cloud, device=device, dtype=torch.float32)
+    return cfg, ops, cloud, consts, scene, jittered(state0, b, device, unjittered_first)
+
+
+def build_fleet_batch(b, device):
+    """bench_scale.py's run_batched problem (__graft_entry__._build_problem):
+    the 4-robot cross of 2000 points, P=4, res 8, max_planes 16,
+    max_self_planes 4, max_ccd_candidates 16, stop 0; ``b`` jittered fleets
+    [b, 4, ...] sharing the scene."""
+    import torch
+    from trajopt_tpu_torch import types as tt
+    from trajopt_tpu_torch.config import TrajOptConfig
+    from trajopt_tpu_torch.ops import splines as sp
+    from trajopt_tpu_torch.scenes import generators as gen
+    from trajopt_tpu_torch.solver import multi
+
+    cfg = TrajOptConfig(res=8, ks=1e-3, max_planes=16, max_self_planes=4, max_ccd_candidates=16,
+                        stop=0.0)
+    cloud = gen.cross_scene(n_points=BATCH_POINTS, seed=0)
+    wps = gen.assign_lanes(gen.cross_waypoints(BATCH_FLEET, FLEET_PIECES), cloud)
+    ops = sp.build_spline_ops(FLEET_PIECES, cfg.res)
+    kw = dict(device=device, dtype=torch.float32)
+    state0 = multi.init_multi_state(ops, wps, cfg.init_piece_time, **kw)
+    return (cfg, ops, cloud, tt.device_consts(ops, **kw), tt.make_scene(cloud, **kw),
+            jittered(state0, b, device))
+
+
+def batch_clearances(ops, cloud, splines, times, device):
+    """[B] min curve clearance of each trajectory (`metrics.min_curve_clearance`'s
+    samples, dt 0.02, distances on the card in float64)."""
+    import numpy as np
+    import torch
+    from trajopt_tpu_torch import metrics as mt
+
+    cloud_t = torch.as_tensor(np.asarray(cloud), dtype=torch.float64, device=device)
+    out = []
+    for s, t in zip(splines, times):
+        pts = torch.as_tensor(mt.sample_trajectory(ops, s, float(t), dt=0.02),
+                              dtype=torch.float64, device=device)
+        out.append(torch.cdist(pts, cloud_t).amin())
+    return torch.stack(out).cpu().numpy()
+
+
+def run_fused_path(label, solve, launches, by_shape, log, on_path=SOLVE_KERNELS):
+    """``solve()`` (a fused driver call) with the launch counts set to 0
+    just before and read just after; every kernel of ``on_path`` must have
+    been launched and hold a node in the graph.  Returns (result, wall ms,
+    `graph.LAST_RUN`)."""
+    import torch
+    from trajopt_tpu_torch.ops import _cuda
+    from trajopt_tpu_torch.runtime import graph
+
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    out = solve()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches[label], by_shape[label] = dict(_cuda.LAUNCHES), shape_counts()
+    run = graph.LAST_RUN
+    for name in on_path:
+        check(launches[label][name] > 0, f"{label}: kernel {name} was never launched")
+        check(run.kernel_nodes[name] > 0, f"{label}: kernel {name} has no node in the graph")
+    return out, wall_ms, run
+
+
+def log_batch_run(label, b, it, wall_ms, run, busy, replay_wall, log):
+    """What (a) and (c) report of one fused batch solve."""
+    log(f"  {label}: {it} iterations of {b} scenarios; warm-up {run.warmup_ms:.1f} + capture "
+        f"{run.capture_ms:.1f} ms, replays {run.replay_ms:.1f} ms = "
+        f"{run.replay_ms / max(it, 1):.3f} ms/iter, {b * it / (run.replay_ms / 1e3):.1f} "
+        f"scenario-iterations/s over the replays ({b * it / (wall_ms / 1e3):.1f} over the whole "
+        f"call of {wall_ms:.1f} ms)")
+    log(f"    kernel nodes per capture (each runs once per replay; not executions): "
+        + ", ".join(f"{k} {v}" for k, v in run.kernel_nodes.items()))
+    log(f"    torch.profiler, one replay from the start: device busy {busy:.3f} ms of "
+        f"{replay_wall:.3f} ms wall, idle share {1.0 - busy / replay_wall:.3f}")
+
+
+def replay_busy(step, carry, max_iters, stop):
+    """(device busy ms, wall ms) of one replay of the captured block from
+    ``carry`` (`device_busy_share`)."""
+    from trajopt_tpu_torch.runtime import graph
+
+    cap = graph.capture(step, carry, max_iters, stop)
+    out = device_busy_share(cap.replay, 1)
+    del cap
+    return out
+
+
+def max_diff(a, b):
+    """Largest abs difference over splines and piece times of two states."""
+    return max(float((a.spline - b.spline).abs().max()),
+               float((a.piece_time - b.piece_time).abs().max()))
+
+
+def first_step_overflow(consts, cfg, states, scene, **options):
+    """The plane-budget overflow flag of one host-stepped step from the
+    start (the batch pools every scenario's candidates into one budget)."""
+    from trajopt_tpu_torch.solver import multi
+
+    return bool(multi.multi_admm_step(consts, cfg, states, scene, **options)[1].plane_overflow)
+
+
+def batch_single_phase(device, launches, by_shape, log):
+    """Phase 7 (a) and (b): `solve_fused_batch` at bench_scale.py's batches,
+    then the convergence gate."""
+    import numpy as np
+    import torch
+    from trajopt_tpu_torch import types as tt
+    from trajopt_tpu_torch.solver import driver
+
+    for b in BATCH_SIZES:
+        t0 = time.perf_counter()
+        cfg, ops, cloud, consts, scene, states = build_batch(b, device)
+        label = f"batch{b} single p4 fused"
+        (out, it, gnorm), wall_ms, run = run_fused_path(
+            label, lambda: driver.solve_fused_batch(consts, cfg, states, scene,
+                                                    max_iters=BATCH_ITERS),
+            launches, by_shape, log)
+        it = int(it)
+        check(it == BATCH_ITERS, f"{label}: {it} iterations, stop 0 runs {BATCH_ITERS}")
+        step = driver.fused_step(consts, cfg, scene, False, interact=False)
+        busy, replay_wall = replay_busy(step, (states,), BATCH_ITERS, cfg.stop)
+        log_batch_run(label, b, it, wall_ms, run, busy, replay_wall, log)
+        log(f"    launches {launches[label]}")
+        log(f"    launches by call shape: {by_shape[label]}")
+        overflow = first_step_overflow(consts, cfg, states, scene, coupled=False, interact=False)
+        log(f"    plane budget overflow in the first step: {overflow}; mean gnorm {float(gnorm):.4g}")
+        if b == BATCH_SIZES[0]:
+            # how the difference from its own solve evolves (BATCH_MATCH_TOL)
+            drift = []
+            for k in (10, 20, 30, 40):
+                part = driver.solve_fused_batch(consts, cfg, states, scene, max_iters=k)[0]
+                own = driver.solve_fused(consts, cfg, tt.index(states, 0), scene, max_iters=k)[0]
+                drift.append(f"{k}: {max_diff(tt.index(part, 0), own):.3g}")
+            log(f"    scenario 0 against its own solve_fused after k iterations: {', '.join(drift)}")
+        for i in (0, b // 2 - 1, b - 1):
+            ref, ref_it, _ = driver.solve_fused(consts, cfg, tt.index(states, i), scene,
+                                                max_iters=BATCH_ITERS)
+            diff = max_diff(tt.index(out, i), ref)
+            log(f"    scenario {i} against its own solve_fused ({int(ref_it)} iterations): "
+                f"max |batch - own| over spline and piece time {diff:.3g} "
+                f"(held to {BATCH_MATCH_TOL:g})")
+            check(diff <= BATCH_MATCH_TOL, f"{label}: scenario {i} off its own solve by {diff:.3g}")
+        splines = out.spline.detach().double().cpu().numpy()
+        times = out.piece_time.detach().double().cpu().numpy()
+        clr = batch_clearances(ops, cloud, splines, times, device)
+        log(f"    curve clearance over the {b} scenarios: min {clr.min():.5f}, max {clr.max():.5f} "
+            f"(offset {cfg.offset}); piece time {times.min():.4f} to {times.max():.4f}; "
+            f"case {time.perf_counter() - t0:.1f} s")
+        check(bool((clr >= cfg.offset).all()), f"{label}: a scenario's clearance is below offset")
+        check(bool((times > 0).all()), f"{label}: a piece time is not positive")
+
+    # (b) the convergence gate: phase 3's problem, default stop, the mean gnorm
+    t0 = time.perf_counter()
+    cfg, ops, cloud, consts, scene, states = build_batch(GATE_BATCH, device, n_points=N_POINTS,
+                                                         stop=None, unjittered_first=True)
+    label = f"batch{GATE_BATCH} single p4 gate fused"
+    (out, it, gnorm), wall_ms, run = run_fused_path(
+        label, lambda: driver.solve_fused_batch(consts, cfg, states, scene, max_iters=MAX_ITERS),
+        launches, by_shape, log)
+    it, gnorm = int(it), float(gnorm)
+    quality = single_quality(ops, cloud, tt.index(out, 0))
+    row = {"iters": it, "gnorm": gnorm, "offset": cfg.offset,
+           "converged": it < MAX_ITERS and gnorm < cfg.stop, **quality}
+    log(f"  {label}: {it} iterations, mean gnorm {gnorm:.4g} (stop {cfg.stop}), replays "
+        f"{run.replay_ms / max(it, 1):.3f} ms/iter, whole call {wall_ms:.1f} ms")
+    check(row["converged"], f"{label}: the mean gnorm did not fall below stop in {MAX_ITERS}")
+    check_parity(f"{label} scenario 0", row, reference_row("single", pieces=4), log)
+    splines = out.spline.detach().double().cpu().numpy()
+    times = out.piece_time.detach().double().cpu().numpy()
+    clr = batch_clearances(ops, cloud, splines, times, device)
+    log(f"    curve clearance over the {GATE_BATCH} scenarios: min {clr.min():.5f} (offset "
+        f"{cfg.offset}); case {time.perf_counter() - t0:.1f} s")
+    check(bool((clr >= cfg.offset).all()), f"{label}: a scenario's clearance is below offset")
+
+
+def fleet_batch_phase(device, launches, by_shape, log):
+    """Phase 7 (c): `solve_fused_batch_multi` at bench_scale.py's fleet
+    batches, coupled (and decoupled at the first), each fleet's pair
+    clearance by K2 cross-checked by K5, fleets 0 and B-1 against their own
+    `solve_fused_multi` (which also shows that no robot is held back by
+    another fleet's: the fleets' jittered copies overlap in space)."""
+    import torch
+    from trajopt_tpu_torch import types as tt
+    from trajopt_tpu_torch.ops import _cuda
+    from trajopt_tpu_torch.solver import driver
+
+    runs = [(b, True) for b in FLEET_BATCHES] + [(FLEET_BATCHES[0], False)]
+    for b, coupled in runs:
+        t0 = time.perf_counter()
+        mode = "coupled" if coupled else "decoupled"
+        cfg, ops, cloud, consts, scene, states = build_fleet_batch(b, device)
+        label = f"batch{b} u{BATCH_FLEET} {mode} fused"
+        (out, it, gnorm), wall_ms, run = run_fused_path(
+            label, lambda: driver.solve_fused_batch_multi(consts, cfg, states, scene,
+                                                          coupled=coupled, max_iters=BATCH_ITERS),
+            launches, by_shape, log)
+        it = int(it)
+        check(it == BATCH_ITERS, f"{label}: {it} iterations, stop 0 runs {BATCH_ITERS}")
+        flat = tt.SolverState(*(x.reshape((-1,) + tuple(x.shape[2:])) for x in states))
+        step = driver.fused_step(consts, cfg, scene, coupled, groups=b)
+        busy, replay_wall = replay_busy(step, (flat,), BATCH_ITERS, cfg.stop)
+        log_batch_run(label, b, it, wall_ms, run, busy, replay_wall, log)
+        log(f"    launches {launches[label]}")
+        log(f"    launches by call shape: {by_shape[label]}")
+        overflow = first_step_overflow(consts, cfg, flat, scene, coupled=coupled, groups=b)
+        log(f"    plane budget overflow in the first step: {overflow}; mean gnorm {float(gnorm):.4g}")
+        for i in (0, b - 1):
+            ref, _, _ = driver.solve_fused_multi(consts, cfg, tt.index(states, i), scene, coupled,
+                                                 max_iters=BATCH_ITERS)
+            diff = max_diff(tt.index(out, i), ref)
+            log(f"    fleet {i} against its own solve_fused_multi: max |batch - own| over "
+                f"splines and piece times {diff:.3g} (held to {BATCH_MATCH_TOL:g})")
+            check(diff <= BATCH_MATCH_TOL, f"{label}: fleet {i} off its own solve by {diff:.3g}")
+        _cuda.reset_launches()
+        for i in range(b):
+            pair_clearance_check(cfg, consts, tt.index(out, i), log)
+        torch.cuda.synchronize()
+        launches[f"{label} pair clearance"] = dict(_cuda.LAUNCHES)
+        check(_cuda.LAUNCHES["gjk_fw"] > 0, "K5 was never launched by the clearance cross-check")
+        quality = fleet_quality(ops, cloud, tt.SolverState(*(x.reshape((-1,) + tuple(x.shape[2:]))
+                                                            for x in out)))
+        log(f"    curve clearance over the {b * BATCH_FLEET} robots: {quality['min_clearance']:.5f} "
+            f"(offset {cfg.offset}); case {time.perf_counter() - t0:.1f} s")
+        check(quality["min_clearance"] >= cfg.offset, f"{label}: clearance below offset")
+        check(bool((out.piece_time > 0).all()), f"{label}: a piece time is not positive")
+
+
+def equal_trees(a, b):
+    """Every leaf of two containers (or two tensors) equal, bit for bit."""
+    import torch
+
+    if torch.is_tensor(a):
+        return a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(a, b))
+    return all(equal_trees(x, y) for x, y in zip(a, b, strict=True))
+
+
+def sharding_phase(device, fused_rows, launches, by_shape, log):
+    """Phase 7 (d): sharding on the one card, a single-rank NCCL group
+    (`make_mesh(1)`): the sharded step, the fused multi solve with
+    ``axis_name``, the 2-D mesh step, the scenario-sharded solver and the
+    CLI's ``--mesh-devices 1`` under torchrun, each against its unsharded
+    counterpart, bit for bit."""
+    import contextlib
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from trajopt_tpu_torch import types as tt
+    from trajopt_tpu_torch.ops import _cuda
+    from trajopt_tpu_torch.parallel import sharded
+    from trajopt_tpu_torch.scenes import generators as gen
+    from trajopt_tpu_torch.solver import driver, multi
+
+    check(not dist.is_initialized(), "a process group exists before phase 7 (d)")
+    mesh = sharded.make_mesh(1)
+    group = mesh.get_group(sharded.ROBOT_AXIS)
+    log(f"  mesh {mesh}, backend {dist.get_backend(group)}")
+    try:
+        cfg, ops, cloud, consts, scene, state0 = build_fleet(FLEET, device, torch.float32)
+        # from phase 6's converged cross, where every kernel of the step runs
+        settled = fused_rows[f"u{FLEET} coupled"]["state"]
+        for coupled in (True, False):
+            mode = "coupled" if coupled else "decoupled"
+            label = f"u{FLEET} {mode} sharded step x3"
+            step = sharded.sharded_multi_step(consts, cfg, mesh, coupled)
+            _cuda.reset_launches()
+            state, same = settled, True
+            for _ in range(3):
+                got = step(state, scene)
+                want = multi.multi_admm_step(consts, cfg, state, scene, coupled)
+                same &= equal_trees(got[0], want[0]) and equal_trees(got[1], want[1])
+                state = got[0]
+            torch.cuda.synchronize()
+            launches[label], by_shape[label] = dict(_cuda.LAUNCHES), shape_counts()
+            log(f"  {label}: states and diags bit-equal to multi_admm_step: {same}")
+            check(same, f"{label}: the sharded step differs from multi_admm_step")
+            for name in SOLVE_KERNELS:
+                check(launches[label][name] > 0, f"{label}: kernel {name} was never launched")
+
+        label = f"u{FLEET} coupled fused axis_name"
+        (state, it, gnorm), wall_ms, run = run_fused_path(
+            label, lambda: driver.solve_fused_multi(consts, cfg, state0, scene, True,
+                                                    max_iters=FLEET_MAX_ITERS, axis_name=group),
+            launches, by_shape, log)
+        ref = fused_rows[f"u{FLEET} coupled"]
+        same = (np.array_equal(state.spline.detach().double().cpu().numpy(), ref["spline"])
+                and np.array_equal(state.piece_time.detach().double().cpu().numpy(),
+                                   ref["piece_time"]))
+        log(f"  {label}: {int(it)} iterations (phase 6: {ref['iters']}), state bit-equal to phase "
+            f"6's: {same}; replays {run.replay_ms / max(int(it), 1):.3f} ms/iter, warm-up "
+            f"{run.warmup_ms:.1f} + capture {run.capture_ms:.1f} ms, kernel nodes "
+            f"{run.kernel_nodes}")
+        check(int(it) == ref["iters"], f"{label}: {int(it)} iterations, phase 6 took {ref['iters']}")
+        check(same, f"{label}: the final state differs from phase 6's")
+
+        label = f"2-D mesh (1, 1), 2 scenarios of u{FLEET}"
+        mesh2 = sharded.make_mesh_2d(1, 1)
+        lower = scene._replace(points=scene.points - torch.tensor([0.0, 0.0, 0.2], device=device))
+        states, scenes = jittered(settled, 2, device), tt.stack([scene, lower])
+        _cuda.reset_launches()
+        got, diags = sharded.sharded_multi_step_2d(consts, cfg, mesh2, True)(states, scenes)
+        torch.cuda.synchronize()
+        launches[label], by_shape[label] = dict(_cuda.LAUNCHES), shape_counts()
+        same = True
+        for i in range(2):
+            want, want_diag = multi.multi_admm_step(consts, cfg, tt.index(states, i),
+                                                    tt.index(scenes, i), True)
+            same &= equal_trees(tt.index(got, i), want) and equal_trees(tt.index(diags, i), want_diag)
+        log(f"  {label}: each scenario bit-equal to its multi_admm_step: {same}")
+        check(same, f"{label}: differs from the per-scenario steps")
+        for name in SOLVE_KERNELS:
+            check(launches[label][name] > 0, f"{label}: kernel {name} was never launched")
+
+        label = "scenario-sharded bridge solves, 4 scenes"
+        scfg, sops, _, sconsts, _, sstate = build_problem(4, device, torch.float32)
+        sscenes = tt.stack([tt.make_scene(gen.bridge_scene(n_points=BATCH_POINTS, seed=s,
+                                                           n_pieces=4)[0],
+                                          device=device, dtype=torch.float32) for s in range(4)])
+        sstates = jittered(sstate, 4, device)
+        smesh = sharded.make_mesh(1, sharded.SCENARIO_AXIS)
+        _cuda.reset_launches()
+        got, its, gnorms = sharded.scenario_sharded_solver(sconsts, scfg, smesh)(sstates, sscenes)
+        torch.cuda.synchronize()
+        launches[label], by_shape[label] = dict(_cuda.LAUNCHES), shape_counts()
+        same = True
+        for i in range(4):
+            want, it, gnorm = driver.solve_fused(sconsts, scfg, tt.index(sstates, i),
+                                                 tt.index(sscenes, i))
+            same &= (equal_trees(tt.index(got, i), want) and int(its[i]) == int(it)
+                     and equal_trees(gnorms[i], gnorm))
+        log(f"  {label}: iterations {its.tolist()}, each bit-equal to its solve_fused: {same}")
+        check(same, f"{label}: differs from the per-scenario solves")
+        for name in SOLVE_KERNELS:
+            check(launches[label][name] > 0, f"{label}: kernel {name} was never launched")
+    finally:
+        dist.destroy_process_group()
+
+    # the CLI under torchrun, one process, against the unsharded CLI
+    from trajopt_tpu_torch.cli import multi as cli
+
+    # bounded: this synthetic cross (no lane assignment) stalls one robot at
+    # the offset and never meets the stop, so the CLI would run forever
+    args = ["--scene", "cross", "--uav-num", str(BATCH_FLEET), "--max-iters", "10"]
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+               "1", "-m", "trajopt_tpu_torch.cli.multi", *args, "--mesh-devices", "1",
+               "--result-dir", os.path.join(tmp, "sharded"),
+               "--metrics", os.path.join(tmp, "sharded.jsonl")]
+        env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True, text=True, timeout=240)
+        sub_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"torchrun --mesh-devices 1 failed ({proc.returncode}):\n"
+                                    f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        with contextlib.redirect_stdout(sys.stderr):     # stdout ends with the JSON lines
+            rc = cli.main(args + ["--result-dir", os.path.join(tmp, "plain"),
+                                  "--metrics", os.path.join(tmp, "plain.jsonl")])
+        check(rc == 0, "the unsharded CLI failed")
+        name = "cross_synthetic_result_file_admm.txt"
+        files = [open(os.path.join(tmp, d, name)).read().splitlines() for d in ("sharded", "plain")]
+        rows = [[json.loads(line) for line in open(os.path.join(tmp, f"{d}.jsonl"))]
+                for d in ("sharded", "plain")]
+        strip = lambda rs: [{k: v for k, v in r.items() if k != "wall_ms"} for r in rs]
+        log(f"  torchrun --nproc-per-node 1 cli.multi --mesh-devices 1 ({sub_s:.1f} s): result "
+            f"{files[0]}, unsharded {files[1]}; metrics rows equal apart from wall_ms: "
+            f"{strip(rows[0]) == strip(rows[1])}")
+        check(files[0][0] == files[1][0] and files[0][2:] == files[1][2:],
+              "the sharded CLI's result file differs from the unsharded one's")
+        check(strip(rows[0]) == strip(rows[1]), "the sharded CLI's metrics differ")
+        for line in proc.stdout.splitlines():
+            if line.startswith("uav "):
+                log("    " + line)
+
 
 
 # ---------------------------------------------------------------------------
@@ -1736,7 +2357,8 @@ def chol_callsite_inputs(device):
     [33,33] and [64,33,33] with b [.,33,2] (factor and solve) and b [.,33]
     (refinement).  Positive-definite blocks, made from a seed.  Last, the
     ``eigh`` slack step's fused launches with ``gmw=False`` at [4,19,19]
-    and [256,19,19] (`eigh_blocks`)."""
+    and [256,19,19] (`eigh_blocks`), then phase 7's own inputs
+    (`batch_chol_timing_inputs`)."""
     import numpy as np
     import torch
 
@@ -1753,7 +2375,7 @@ def chol_callsite_inputs(device):
     h4, h256, k1, k64 = spd(4, 19, 19), spd(256, 19, 19), spd(33, 33), spd(FLEET, 33, 33)
     return [(h4, None), (spd(FLEET, 4, 19, 19), None), (h4, vec(4, 19)), (h256, vec(256, 19)),
             (k1, vec(33, 2)), (k64, vec(FLEET, 33, 2)), (k1, vec(33)), (k64, vec(FLEET, 33))] + [
-        (h, b, False) for _, h, b in eigh_blocks(device, 5)]
+        (h, b, False) for _, h, b in eigh_blocks(device, 5)] + batch_chol_timing_inputs(device)
 
 
 def _digest(*tensors):
@@ -2170,8 +2792,15 @@ def main() -> int:
     # -- phase 6 ------------------------------------------------------------
     log(f"== phase 6: the fused drivers, each solve one CUDA graph replayed (float32, on the "
         f"card; {smi})")
-    fused_phase(device, host_rows, log)
+    fused_rows = fused_phase(device, host_rows, log)
     phase_done(6)
+
+    # -- phase 7 ------------------------------------------------------------
+    log(f"== phase 7: scenario batches and sharding (float32, on the card; {smi})")
+    batch_single_phase(device, launches, by_shape, log)
+    fleet_batch_phase(device, launches, by_shape, log)
+    sharding_phase(device, fused_rows, launches, by_shape, log)
+    phase_done(7)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     path = {name: f"u{FLEET} coupled" for name in KERNELS}

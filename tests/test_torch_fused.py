@@ -265,6 +265,22 @@ def _bodies():
     caches = multi.init_multi_caches(ccfg, cconsts, 2, **F64)
     out["cached"] = (lambda st, ca: multi.multi_admm_step_cached(cconsts, ccfg, st, cscene, True, ca),
                      (cstate, caches), 4)
+    # two fleets of the crossing pair, the second 0.3 higher, as one
+    # grouped fleet (`_coupled_grouped_update`'s gate reads both ways)
+    gcfg, gconsts, gscene, gstate = fleet_problem()
+    lift = torch.tensor([0.0, 0.0, 0.3], dtype=torch.float64)
+    gstate = tt.SolverState(*(torch.cat([x, x]) for x in gstate))
+    gstate = gstate._replace(spline=torch.cat([gstate.spline[:2], gstate.spline[2:] + lift]))
+    for coupled, name in ((True, "grouped_coupled"), (False, "grouped_decoupled")):
+        out[name] = (lambda st, cp=coupled: multi.multi_admm_step(gconsts, gcfg, st, gscene, cp,
+                                                                  groups=2), gstate, 8)
+    # three single UAVs sharing the sphere, as a scenario batch
+    bcfg, bconsts, bscene, bstate = single_problem()
+    bstate = tt.SolverState(*(torch.stack([x, x, x]) for x in bstate))
+    bstate = bstate._replace(spline=bstate.spline + torch.tensor([0.0, 0.05, 0.1],
+                                                                 dtype=torch.float64)[:, None, None])
+    out["batch"] = (lambda st: multi.multi_admm_step(bconsts, bcfg, st, bscene, False,
+                                                     interact=False), bstate, 6)
     return out
 
 
@@ -334,7 +350,8 @@ def _guard(seen):
 
 
 BODIES = ["single", "single_optimal_plane", "coupled_obstacles", "coupled_apart",
-          "decoupled_obstacles", "decoupled_apart", "cached", "ccd_conflict", "guard"]
+          "decoupled_obstacles", "decoupled_apart", "cached", "grouped_coupled",
+          "grouped_decoupled", "batch", "ccd_conflict", "guard"]
 
 
 @pytest.mark.parametrize("body", BODIES)
@@ -376,7 +393,7 @@ def test_every_device_cond_site_is_driven_both_ways():
         for site, values in _select_body(body).items():
             seen[site] |= values
     sites = _device_cond_sites()
-    assert len(sites) == 12, sorted(sites)
+    assert len(sites) == 13, sorted(sites)
     assert {s: seen.get(s, set()) for s in sites} == {s: {False, True} for s in sites}
 
 
@@ -428,17 +445,10 @@ def test_block_tridiagonal_kkt_matches_jax_at_p16():
 
 
 def test_fused_drivers_refuse_what_is_not_ported():
-    """``axis_name``, ``interact=False`` and ``groups > 1`` raise, as
-    `multi.multi_admm_step` does; ``psd_method="eigh"`` raises in every
-    fused driver (`eigvalsh` waits on the host), not in `solve`."""
+    """``psd_method="eigh"`` raises in every fused driver (`eigvalsh` waits
+    on the host), not in `solve`."""
     cfg, consts, scene, state = fleet_problem(obstacles=False)
     caches = multi.init_multi_caches(cfg, consts, 2, **F64)
-    for kw in (dict(axis_name="robots"), dict(interact=False), dict(groups=2)):
-        with pytest.raises(NotImplementedError):
-            driver.solve_fused_multi(consts, cfg, state, scene, True, max_iters=1, **kw)
-    with pytest.raises(NotImplementedError):
-        driver.solve_fused_multi_cached(consts, cfg, state, scene, True, caches, max_iters=1,
-                                        axis_name="robots")
     eigh = dataclasses.replace(cfg, psd_method="eigh")
     with pytest.raises(NotImplementedError, match="eigh"):
         driver.solve_fused_multi(consts, eigh, state, scene, True, max_iters=1)

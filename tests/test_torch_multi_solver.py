@@ -121,22 +121,6 @@ def test_colliding_start_warns():
     assert any("pairwise robot clearance" in str(r.message) for r in rec)
 
 
-def test_unported_multi_options_raise(fleet):
-    """What the fleet path still refuses: scenario batches, grouped fleets
-    and robot sharding."""
-    cfg, _, _, jstate, consts, scene = fleet
-    state = tt.from_numpy(jstate, **F64)
-    tcfg = port_cfg(cfg)
-    with pytest.raises(NotImplementedError, match="interact"):
-        multi.multi_admm_step(consts, tcfg, state, scene, True, interact=False)
-    with pytest.raises(NotImplementedError, match="groups"):
-        multi.multi_admm_step(consts, tcfg, state, scene, True, groups=2)
-    from trajopt_tpu_torch.cli import multi as cli
-
-    with pytest.raises(NotImplementedError, match="mesh-devices"):
-        cli.main(["--scene", "cross", "--cpu", "--mesh-devices", "2"])
-
-
 def test_cli_multi_cpu(tmp_path, capsys):
     from trajopt_tpu_torch.cli import multi as cli
 

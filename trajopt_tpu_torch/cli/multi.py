@@ -8,7 +8,17 @@ Usage:
 Same flags, result file and printout as `trajopt_tpu.cli.multi`; the
 device is CUDA unless ``--cpu`` is given.  Mode selection follows the
 config's ``decouple`` flag (Main/multiPathPlanning3D.cpp:664-678).
-``--mesh-devices`` (robot sharding) is not ported yet and raises.
+
+``--mesh-devices N`` shards the robots over the N processes of a
+``torchrun`` job (NCCL, one card per process; gloo with ``--cpu``): rank r
+steps robots [r*U/N, (r+1)*U/N) in `solver.driver.solve_multi` with the
+robot group as ``axis_name`` (the step of `parallel.sharded.
+sharded_multi_step`, with the loop's start-up checks, warnings and
+``optimal_plane`` caches), and rank 0 alone writes the result and metrics
+files and prints.  ``--mesh-devices 1`` also runs without ``torchrun``:
+
+    torchrun --nproc-per-node 4 -m trajopt_tpu_torch.cli.multi --scene cross \
+        --uav-num 64 --mesh-devices 4
 """
 
 from __future__ import annotations
@@ -32,7 +42,7 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--coupled", action="store_true", help="force coupled mode")
     ap.add_argument("--decoupled", action="store_true", help="force decoupled mode")
     ap.add_argument("--mesh-devices", type=int, default=0,
-                    help="shard robots over this many devices (not ported yet)")
+                    help="shard robots over the processes of a torchrun job of this size")
     ap.add_argument("--result-dir", default="result")
     ap.add_argument("--metrics", default=None)
     ap.add_argument("--plot", default=None, metavar="PNG",
@@ -46,11 +56,47 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
-    if args.mesh_devices:
-        raise NotImplementedError("--mesh-devices (robot sharding) is not ported to torch yet")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.mesh_devices and world != args.mesh_devices:
+        raise ValueError(f"--mesh-devices {args.mesh_devices} needs a job of as many processes "
+                         f"(torchrun --nproc-per-node {args.mesh_devices}); WORLD_SIZE is {world}")
 
     import torch
 
+    device = torch.device("cpu" if args.cpu else "cuda")
+    dtype = torch.float64 if args.x64 else torch.float32
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print("no CUDA device is available; pass --cpu to run on the CPU", file=sys.stderr)
+        return 2
+    if args.mesh_devices:
+        return _sharded(args, device, dtype)
+    return _run(args, device, dtype)
+
+
+def _sharded(args, device, dtype) -> int:
+    """``--mesh-devices``: join the job (one card per process, by
+    LOCAL_RANK), run, and leave the process group if this call made it."""
+    import torch
+    import torch.distributed as dist
+
+    from ..parallel import sharded
+
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(device)
+    made = not dist.is_initialized()
+    sharded.init_distributed(device_type=device.type)
+    try:
+        mesh = sharded.make_mesh(args.mesh_devices, device_type=device.type)
+        return _run(args, device, dtype, mesh)
+    finally:
+        if made and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args, device, dtype, mesh=None) -> int:
+    """Build the problem, solve (robots sharded over ``mesh`` if given),
+    report; with a mesh only rank 0 writes and prints."""
     from .. import metrics as mt
     from .. import types as tt
     from ..config import TrajOptConfig
@@ -58,12 +104,6 @@ def main(argv=None) -> int:
     from ..scenes import generators as gen
     from ..scenes import io as sio
     from ..solver import driver, multi as multi_mod
-
-    device = torch.device("cpu" if args.cpu else "cuda")
-    dtype = torch.float64 if args.x64 else torch.float32
-    if device.type == "cuda" and not torch.cuda.is_available():
-        print("no CUDA device is available; pass --cpu to run on the CPU", file=sys.stderr)
-        return 2
 
     cfg = (
         TrajOptConfig.from_json(args.config)
@@ -115,10 +155,21 @@ def main(argv=None) -> int:
 
     coupled = not cfg.decouple
     t0 = time.perf_counter()
-    state, history = driver.solve_multi(
-        consts, cfg, state, scene, coupled=coupled, max_iters=args.max_iters
-    )
+    if mesh is None:
+        state, history = driver.solve_multi(
+            consts, cfg, state, scene, coupled=coupled, max_iters=args.max_iters
+        )
+    else:
+        from ..parallel import sharded
+
+        local, history = driver.solve_multi(
+            consts, cfg, sharded.shard_robots(state, mesh), scene, coupled=coupled,
+            max_iters=args.max_iters, axis_name=mesh.get_group(sharded.ROBOT_AXIS),
+        )
+        state = sharded.gather_robots(local, mesh)
     whole_ms = (time.perf_counter() - t0) * 1e3
+    if mesh is not None and mesh.get_rank() != 0:
+        return 0
 
     if args.metrics:
         with open(args.metrics, "w") as fh:

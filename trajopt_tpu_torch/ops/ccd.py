@@ -201,14 +201,21 @@ def _interval(proj):
     return proj.amin(dim=-2), proj.amax(dim=-2)
 
 
-def _not_self(gids: torch.Tensor, ut: int) -> torch.Tensor:
-    """[U, Ut] bool: fleet robot j is not local robot i."""
-    return gids[:, None] != torch.arange(ut, device=gids.device)[None, :]
+def partners(gids: torch.Tensor, ut: int, groups: int = 1) -> torch.Tensor:
+    """[U, Ut] bool: fleet robot j may constrain local robot i, i.e. it is
+    another robot and, in a fleet of ``groups`` contiguous equal groups (a
+    scenario-grouped batch), one of the same group."""
+    other = torch.arange(ut, device=gids.device)[None, :]
+    mask = gids[:, None] != other
+    if groups > 1:
+        upg = ut // groups
+        mask = mask & (gids[:, None] // upg == other // upg)
+    return mask
 
 
 def pair_max_step_direct(
     my_hulls, my_dhulls, all_hulls, all_dhulls, gids, offset, gjk_iters,
-    k_partners: int = 8, n_slots: int = 8,
+    k_partners: int = 8, n_slots: int = 8, groups: int = 1,
 ) -> torch.Tensor:
     """[U] largest provably safe common step per robot against every other
     robot (Step::couple_self_step semantics), the per-segment three-level
@@ -222,8 +229,9 @@ def pair_max_step_direct(
        directional rate.
 
     ``my_*``: [U,P,R,n,3] local robots; ``all_*``: [Ut,P,R,n,3] the fleet;
-    ``gids``: [U] fleet ids of the local robots.  The plateau gate is a
-    `device_cond`."""
+    ``gids``: [U] fleet ids of the local robots; with ``groups > 1`` only
+    robots of the same group constrain each other (`partners`).  The
+    plateau gate is a `device_cond`."""
     ut = all_hulls.shape[0]
     lo3_a, hi3_a = _interval(my_hulls)                   # [U,P,R,3]
     lo3_b, hi3_b = _interval(all_hulls)                  # [Ut,P,R,3]
@@ -235,7 +243,7 @@ def pair_max_step_direct(
     s2_ = _side_limit(g2, sp3_hi_a[:, None] + sp3_lo_b[None])
     s3 = torch.maximum(s1_, s2_).amax(dim=-1)            # [U,Ut,P,R]
     s3 = s3.permute(0, 2, 3, 1)                          # [U,P,R,Ut]
-    s3 = torch.where(_not_self(gids, ut)[:, None, None, :], torch.clamp(s3, min=0.0),
+    s3 = torch.where(partners(gids, ut, groups)[:, None, None, :], torch.clamp(s3, min=0.0),
                      float("inf")).contiguous()
     s_seg_min = s3.amin(dim=-1)                          # [U,P,R]
     # plateau regime: every pair limit certifies the full step
@@ -337,16 +345,18 @@ class PairCCD(NamedTuple):
     n_slots: int
 
 
-def build_pair_ccd(my_hulls, my_dhulls, all_hulls, all_dhulls, gids, k_gjk: int) -> PairCCD:
+def build_pair_ccd(my_hulls, my_dhulls, all_hulls, all_dhulls, gids, k_gjk: int,
+                   groups: int = 1) -> PairCCD:
     """``my_*``: [U,P,R,n,3] local robots; ``all_*``: [Ut,...] the fleet;
-    ``gids``: [U] fleet ids of the local robots."""
+    ``gids``: [U] fleet ids of the local robots; ``groups`` as in
+    `pair_max_step_direct`."""
     ax_t = _axes(my_hulls.device, my_hulls.dtype).T
     ut = all_hulls.shape[0]
     return PairCCD(
         my_hull=my_hulls, my_dhull=my_dhulls, my_hp=my_hulls @ ax_t, my_dp=my_dhulls @ ax_t,
         all_hulls=all_hulls, all_dhulls=all_dhulls,
         all_hp=all_hulls @ ax_t, all_dp=all_dhulls @ ax_t,
-        not_self=_not_self(gids, ut),
+        not_self=partners(gids, ut, groups),
         n_slots=max(1, min(2 * k_gjk, ut)),
     )
 

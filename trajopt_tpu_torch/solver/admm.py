@@ -231,6 +231,16 @@ def spline_direction(
     )
 
 
+def armijo_ok(e0, wolfe, step, e):
+    """The Armijo test of the spline line searches, for a feasible trial
+    only: ``e`` finite and at most ``e0 - c * wolfe * step``.  The reference
+    tests the inequality alone (`trajopt_tpu/solver/admm.py:471-474`), so
+    where rounding leaves the current iterate infeasible (``e0`` = +inf, seen
+    in float32) it accepts any trial, infeasible ones too, and the piece
+    time collapses to NaN within a few iterations."""
+    return torch.isfinite(e) & (e0 - _ARMIJO_C * wolfe * step >= e)
+
+
 def step_candidates(cfg: TrajOptConfig, dtype, device, start=1.0) -> torch.Tensor:
     """The geometric step ladder start * 0.8^k, k = 0..max_line_search-1."""
     k = torch.arange(cfg.max_line_search, dtype=dtype, device=device)
@@ -248,17 +258,30 @@ def staged_ladder_ok(eval_ok, ladder: torch.Tensor, stage: int = 8) -> torch.Ten
     """Test the first ``stage`` rungs; only if some column still lacks an
     accept, recurse on the tail with a doubled stage (8, 16, 32, ...).
     ``eval_ok(sub_ladder [M, ...]) -> bool [M, cols...]``."""
+    return staged_ladder_vals(lambda sub: (eval_ok(sub),), ladder, stage)[0]
+
+
+def staged_ladder_vals(eval_fn, ladder: torch.Tensor, stage: int = 8) -> tuple:
+    """The staged ladder of `staged_ladder_ok`, threading values beside the
+    predicate: ``eval_fn(sub_ladder [M, ...]) -> (ok [M, cols...], *vals)``
+    with each value shaped as ``ok``; a skipped stage gives False and +inf,
+    so a chosen rung's values are always ones that were evaluated.  The
+    stage gate is batch-global: every column must have an accept to skip
+    the tail."""
     s = ladder.shape[0]
     n1 = min(stage, s)
-    ok1 = eval_ok(ladder[:n1])
+    out1 = tuple(eval_fn(ladder[:n1]))
     if n1 == s:
-        return ok1
-    ok2 = graph.device_cond(
+        return out1
+    ok1 = out1[0]
+    shape = (s - n1,) + ok1.shape[1:]
+    out2 = graph.device_cond(
         torch.all(torch.any(ok1, dim=0)),
-        lambda: torch.zeros((s - n1,) + ok1.shape[1:], dtype=torch.bool, device=ok1.device),
-        lambda: staged_ladder_ok(eval_ok, ladder[n1:], stage=2 * stage),
+        lambda: (torch.zeros(shape, dtype=torch.bool, device=ok1.device),) + tuple(
+            torch.full(shape, float("inf"), dtype=v.dtype, device=v.device) for v in out1[1:]),
+        lambda: staged_ladder_vals(eval_fn, ladder[n1:], stage=2 * stage),
     )
-    return torch.cat([ok1, ok2], dim=0)
+    return tuple(torch.cat([a, b], dim=0) for a, b in zip(out1, out2, strict=True))
 
 
 def _with_floor_fallback(ok: torch.Tensor) -> torch.Tensor:
@@ -321,7 +344,7 @@ def armijo_spline(
     e0 = trial_energy(torch.zeros((), dtype=t0.dtype, device=t0.device))
 
     def accepted(step):
-        return e0 - _ARMIJO_C * sd.wolfe * step >= trial_energy(step)
+        return armijo_ok(e0, sd.wolfe, step, trial_energy(step))
 
     def ladder():
         steps = step_candidates(cfg, t0.dtype, t0.device) * step0

@@ -13,7 +13,9 @@ Port of `trajopt_tpu/solver/driver.py`:
   the whole loop on the device (`runtime.graph.run_fused`: on the card one
   CUDA graph replayed, one host read of a flag per replay), with the
   reference's loop condition ``(it < max_iters) & ((it <= 1) | (gnorm >=
-  stop))``.  They run the same step functions as the host-stepped drivers.
+  stop))``.  They run the same step functions as the host-stepped drivers;
+- scenario batches, `solve_fused_batch` (B single UAVs) and
+  `solve_fused_batch_multi` (B fleets), through `solve_fused_multi`.
 """
 
 from __future__ import annotations
@@ -109,7 +111,7 @@ def _warn_plane_overflow(cfg: TrajOptConfig, history: list) -> None:
         )
 
 
-def _history_row(it: int, diag: StepDiag, piece_time: torch.Tensor, t0: float) -> dict:
+def history_row(it: int, diag: StepDiag, piece_time: torch.Tensor, t0: float) -> dict:
     """One iteration's history record: the diagnostics in one device-to-host
     read, which also ends the iteration's device work before ``wall_ms``."""
     vals = torch.stack([
@@ -175,7 +177,7 @@ def solve(
             state, diag = admm.admm_step(consts, cfg, state, scene)
         else:
             state, diag, cache = admm.admm_step_cached(consts, cfg, state, scene, cache)
-        history.append(_history_row(it, diag, state.piece_time, t0))
+        history.append(history_row(it, diag, state.piece_time, t0))
         gnorm = history[-1]["gnorm"]
         _warn_plane_overflow(cfg, history)
         if callback:
@@ -209,15 +211,26 @@ def solve_multi(
     coupled: bool | None = None,
     max_iters: int | None = None,
     checkpointer=None,
+    axis_name=None,
 ) -> tuple[SolverState, list[dict]]:
     """Host-driven multi-robot loop (coupled defaults to ``not cfg.decouple``),
     with the history keys of `solve`; ``piece_time`` is the fleet maximum.
     ``cfg.optimal_plane`` threads the obstacle and pair plane caches through
-    `multi.multi_admm_step_cached`; ``checkpointer`` as in `solve`."""
+    `multi.multi_admm_step_cached`; ``checkpointer`` as in `solve`.
+
+    ``axis_name``: the process group the robots are sharded over
+    (`parallel.sharded`): ``state`` holds this rank's robots, the step's
+    collectives run over the group, and the returned state is this rank's;
+    the history is the fleet's, the same on every rank.  Checkpoints hold
+    one process's fleet, so a sharded loop takes no ``checkpointer``."""
     coupled = (not cfg.decouple) if coupled is None else coupled
     max_iters = max_iters if max_iters is not None else cfg.max_iters
+    if axis_name is not None and checkpointer is not None:
+        raise ValueError("a sharded solve_multi takes no checkpointer: checkpoints hold one "
+                         "process's whole fleet")
     warn_on_coarse_overflow(consts, cfg, state.spline, scene)
-    clr = initial_pair_clearance(consts, state)
+    fleet = state._replace(spline=multi._gather_robots(state.spline, axis_name))
+    clr = initial_pair_clearance(consts, fleet)
     if clr <= cfg.offset:
         warnings.warn(
             f"initial min pairwise robot clearance {clr:.4f} <= offset "
@@ -229,7 +242,8 @@ def solve_multi(
         )
     history: list[dict] = []
     caches = (multi.init_multi_caches(cfg, consts, state.spline.shape[0],
-                                      device=state.spline.device, dtype=state.spline.dtype)
+                                      device=state.spline.device, dtype=state.spline.dtype,
+                                      u_total=fleet.spline.shape[0])
               if cfg.optimal_plane else None)
     it, gnorm, state, caches = _resume(checkpointer, cfg, state, caches, "multi")
     while it < max_iters:
@@ -237,11 +251,13 @@ def solve_multi(
             break
         t0 = time.perf_counter()
         if caches is None:
-            state, diag = multi.multi_admm_step(consts, cfg, state, scene, coupled)
+            state, diag = multi.multi_admm_step(consts, cfg, state, scene, coupled,
+                                                axis_name=axis_name)
         else:
             state, diag, caches = multi.multi_admm_step_cached(
-                consts, cfg, state, scene, coupled, caches)
-        history.append(_history_row(it, diag, state.piece_time.amax(), t0))
+                consts, cfg, state, scene, coupled, caches, axis_name=axis_name)
+        piece_time = multi._gather_robots(state.piece_time, axis_name).amax()
+        history.append(history_row(it, diag, piece_time, t0))
         gnorm = history[-1]["gnorm"]
         _warn_plane_overflow(cfg, history)
         if checkpointer is not None:
@@ -262,11 +278,13 @@ def _check_fused(cfg: TrajOptConfig) -> None:
 
 
 def fused_step(consts: SplineConsts, cfg: TrajOptConfig, scene: Scene,
-               coupled: bool | None = None, cached: bool = False):
+               coupled: bool | None = None, cached: bool = False, **multi_options):
     """The step the fused drivers loop, ``step(carry) -> (carry, gnorm)``
     for `graph.run_fused` (and `graph.capture`): `admm.admm_step` on
     ``(state,)`` when ``coupled`` is None, else `multi.multi_admm_step`, or
-    with ``cached`` `multi.multi_admm_step_cached` on ``(state, caches)``."""
+    with ``cached`` `multi.multi_admm_step_cached` on ``(state, caches)``;
+    ``multi_options`` (``axis_name``, ``interact``, ``groups``) go to the
+    multi-robot step."""
     _check_fused(cfg)
     if coupled is None:
         def step(carry):
@@ -275,11 +293,12 @@ def fused_step(consts: SplineConsts, cfg: TrajOptConfig, scene: Scene,
     elif cached:
         def step(carry):
             new, diag, caches = multi.multi_admm_step_cached(consts, cfg, carry[0], scene,
-                                                             coupled, carry[1])
+                                                             coupled, carry[1], **multi_options)
             return (new, caches), diag.gnorm
     else:
         def step(carry):
-            new, diag = multi.multi_admm_step(consts, cfg, carry[0], scene, coupled)
+            new, diag = multi.multi_admm_step(consts, cfg, carry[0], scene, coupled,
+                                              **multi_options)
             return (new,), diag.gnorm
     return step
 
@@ -306,23 +325,21 @@ def solve_fused_multi(
     scene: Scene,
     coupled: bool,
     max_iters: int = 200,
-    axis_name: str | None = None,
+    axis_name=None,
     interact: bool = True,
     groups: int = 1,
 ) -> tuple[SolverState, torch.Tensor, torch.Tensor]:
     """Entire multi-robot solve as one device loop
     (`multi.multi_admm_step`), the JAX package's production serving path.
-    ``axis_name`` (robot sharding), ``interact=False`` and ``groups > 1``
-    are not ported and raise `NotImplementedError`.
-    Returns (state, iterations_run, final_gnorm)."""
-    if axis_name is not None:
-        raise NotImplementedError("axis_name (robot sharding) is not ported to torch yet")
-    if not interact:
-        raise NotImplementedError("interact=False (scenario batches) is not ported to torch yet")
-    if groups != 1:
-        raise NotImplementedError("groups > 1 (grouped coupled fleets) is not ported to torch yet")
-    (state,), it, gnorm = graph.run_fused(fused_step(consts, cfg, scene, coupled), (state,),
-                                          max_iters, cfg.stop)
+    ``axis_name``: the process group the robots are sharded over (this
+    rank's robots in ``state``; the step's collectives run inside the loop,
+    and inside the CUDA graph on the card); ``interact`` and ``groups`` as
+    in `multi.multi_admm_step` (`solve_fused_batch`,
+    `solve_fused_batch_multi`).  Returns (state, iterations_run,
+    final_gnorm)."""
+    step = fused_step(consts, cfg, scene, coupled, axis_name=axis_name, interact=interact,
+                      groups=groups)
+    (state,), it, gnorm = graph.run_fused(step, (state,), max_iters, cfg.stop)
     return state, it, gnorm
 
 
@@ -334,16 +351,51 @@ def solve_fused_multi_cached(
     coupled: bool,
     caches,                      # (obstacle PlaneCache [U,...], PairPlaneCache)
     max_iters: int = 200,
-    axis_name: str | None = None,
+    axis_name=None,
 ):
     """`solve_fused_multi` with the persistent ``optimal_plane`` caches
     carried through the device loop (`multi.multi_admm_step_cached`; the
     plane tables accumulate across the whole run,
     Optimization3D_multi.h:278-327).  Returns (state, iterations_run,
     final_gnorm, caches)."""
-    if axis_name is not None:
-        raise NotImplementedError("axis_name (robot sharding) is not ported to torch yet")
     (state, caches), it, gnorm = graph.run_fused(
-        fused_step(consts, cfg, scene, coupled, cached=True), (state, tuple(caches)),
-        max_iters, cfg.stop)
+        fused_step(consts, cfg, scene, coupled, cached=True, axis_name=axis_name),
+        (state, tuple(caches)), max_iters, cfg.stop)
     return state, it, gnorm, caches
+
+
+def solve_fused_batch(
+    consts: SplineConsts,
+    cfg: TrajOptConfig,
+    states: SolverState,         # leading scenario axis B on all leaves
+    scene: Scene,
+    max_iters: int = 200,
+) -> tuple[SolverState, torch.Tensor, torch.Tensor]:
+    """B single-UAV scenarios sharing one scene as one fused device loop:
+    the multi-robot step with ``interact=False`` (no pair planes, no pair
+    CCD), so every kernel call takes the whole batch and the plane and CCD
+    compaction pools candidates across it.  The loop stops on the mean
+    gnorm over the scenarios, as the reference's batch driver does.
+    Returns (states, iterations_run, final_mean_gnorm)."""
+    return solve_fused_multi(consts, cfg, states, scene, coupled=False, max_iters=max_iters,
+                             interact=False)
+
+
+def solve_fused_batch_multi(
+    consts: SplineConsts,
+    cfg: TrajOptConfig,
+    states: SolverState,         # leading [B, U] scenario x robot axes
+    scene: Scene,
+    coupled: bool = True,
+    max_iters: int = 200,
+) -> tuple[SolverState, torch.Tensor, torch.Tensor]:
+    """B independent U-robot fleets sharing one scene, advanced in lockstep
+    in one fused device loop: [B, U] flattens into one fleet of ``groups=B``
+    (pair planes and pair CCD masked per fleet; coupled, per-fleet Schur
+    sums, CCD min and Armijo).  Returns (states [B, U, ...],
+    iterations_run, final_mean_gnorm)."""
+    b, u = states.spline.shape[:2]
+    flat = SolverState(*(x.reshape((b * u,) + tuple(x.shape[2:])) for x in states))
+    out, it, gnorm = solve_fused_multi(consts, cfg, flat, scene, coupled=coupled,
+                                       max_iters=max_iters, groups=b)
+    return SolverState(*(x.reshape((b, u) + tuple(x.shape[1:])) for x in out)), it, gnorm

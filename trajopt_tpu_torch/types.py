@@ -243,6 +243,17 @@ def from_numpy(obj, *, device, dtype):
     return cls(*(conv(x) for x in obj))
 
 
+def stack(items):
+    """Containers of one type stacked field by field on a new leading axis
+    (a batch of states or scenes)."""
+    return type(items[0])(*(torch.stack(xs) for xs in zip(*items)))
+
+
+def index(obj, i):
+    """Item ``i`` of a container's leading axis, field by field."""
+    return type(obj)(*(x[i] for x in obj))
+
+
 def to_numpy(obj):
     """This package's container with every field as a NumPy array."""
     conv = lambda x: x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
