@@ -21,7 +21,15 @@ Phases, each reported on its own lines with the seconds it took:
    states (K2 on the full plane tables [512,6,3] and [32768,6,3], far slots
    included; K1 at the per-robot broad phase's [64,4,4000] and
    [64,4,8,64]), and the fused kernel with ``gmw=False`` (the ``eigh``
-   slack step) at [4,19,19] and [256,19,19];
+   slack step) at [4,19,19] and [256,19,19]; then every call that phase
+   8's paths make, one call of each shape from a select-form step of each
+   of its problems with each method (and of the 1024 batch): K6 against
+   float64 eigenvalues (within 1e-5 x |H|_F), also on edge blocks (m = 1
+   to 32, diagonal, definite, repeated eigenvalues, scales 1e-6 and 1e6,
+   NaN and inf, batches of 1 and 4097), K3's plain mode on every trial of
+   the shift ladder (its rungs and bisection steps; the PD verdicts
+   against the float64 spectrum), and K3, K4 and the fused kernel on the
+   rest as on phase 7's;
 3. the single-UAV bridge solve (the reference's benchmark scene) at P=4 and
    P=16 pieces on the card, checked against the C++ reference's trajectory
    quality (tools/ref_baseline/results.json) and, at P=4, against the
@@ -51,7 +59,10 @@ Phases, each reported on its own lines with the seconds it took:
    64512 problems with each routed G (`fw_route_matrix`), and K3, K4 and
    the fused kernel at every call-site shape beside their latency floor
    (an empty kernel plus m or 2m dependent steps, measured by a one-warp
-   probe); last, what the P = 16 KKT (ns = 141) pays per call.  ``ms`` is per call
+   probe); what the P = 16 KKT (ns = 141) pays per call; last K6 at the
+   solver's call shapes beside float32 `torch.linalg.eigvalsh` (busy ms:
+   it cannot be captured) and K3's plain mode at the ladder's trial
+   shapes beside `torch.linalg.cholesky_ex`.  ``ms`` is per call
    between CUDA events (the host's cost of issuing a call included),
    ``device_ms`` from 50 launches in one CUDA graph;
 6. the fused drivers (`solve_fused` on the bridge at P=4 and P=16,
@@ -78,7 +89,20 @@ Phases, each reported on its own lines with the seconds it took:
    `solve_fused_multi(axis_name=...)` bit-equal to the unsharded ones,
    the 2-D mesh step, the scenario-sharded solver, and
    ``torchrun --nproc-per-node 1 ... cli.multi --mesh-devices 1`` against
-   the unsharded CLI.
+   the unsharded CLI;
+8. every PSD repair on every driver: ``psd_method="eigh"`` and
+   ``"ladder"`` on the bridge at P=4 and the 64-robot cross coupled,
+   host-stepped and fused, the fused solves as phase 6's (the fused solve
+   takes the host-stepped count with a bit-equal state; ``eigh`` held to
+   the C++ gate, ``"ladder"`` to the JAX package's CPU float64 row,
+   `testing.PSD_JAX_ROWS`, the C++ offsets printed beside it; K6 launched
+   in every ``eigh`` solve and K3 not, K3 in every ladder solve and K6
+   not; host syncs = replays + 2, and of one host-stepped iteration from
+   the converged state; replay ms, warm-up and capture, kernel nodes, busy
+   and idle share);
+   `solve_fused_batch` at B = 16 with each method (scenarios against
+   their own `solve_fused`), and the cross's ladder solve sharded at
+   world size 1, bit-equal to the unsharded one.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -96,6 +120,7 @@ change, parent in one call).
 
 from __future__ import annotations
 
+import collections
 import functools
 import json
 import os
@@ -130,6 +155,8 @@ KERNELS = {
     "chol_solve": ("trajopt_tpu_torch/csrc/chol.cu", "trajopt_tpu/ops/pallas_chol.py:90"),
     "factor_solve": ("trajopt_tpu_torch/csrc/chol.cu",
                      "trajopt_tpu/ops/pallas_chol.py:43 and :90 (one launch for both)"),
+    "eigvalsh": ("trajopt_tpu_torch/csrc/eig.cu",
+                 "trajopt_tpu/ops/gradients.py:414 (XLA's eigvalsh; no Pallas site)"),
 }
 # the kernels every solve must launch (K5 runs in the clearance cross-check)
 SOLVE_KERNELS = ("smallest_k", "gjk_exact", "mod_chol", "chol_solve", "factor_solve")
@@ -137,6 +164,9 @@ SOLVE_KERNELS = ("smallest_k", "gjk_exact", "mod_chol", "chol_solve", "factor_so
 # kernels line (64-robot coupled shapes)
 HEADLINE = {"smallest_k": "fleet coarse [32,4000] k=64",
             "gjk_exact": "self planes [1024,36,3] iters=16"}
+# the `psd_timings` shape that stands for K6 in the kernels line (the
+# 64-robot cross's slack blocks)
+EIG_HEADLINE = f"[{FLEET * FLEET_PIECES},19,19]"
 
 
 class CheckFailed(AssertionError):
@@ -254,38 +284,19 @@ def _dims(args) -> str:
                     for a in args)
 
 
-@functools.lru_cache(maxsize=None)
-def batch_call_inputs(device):
-    """The inputs that phase 7's batch paths hand K1-K4 and the fused
-    launch, one call of each shape: one step in the select form (both sides
-    of every branch, as the CUDA graph holds them) from the start of each
-    problem of phase 7 (a) (B = 16 and 1024), (b) (the gate batch) and (c)
-    (fleets coupled at B = 4 and 16, decoupled at B = 4).  Returns
-    {kernel: [(label, args, kwargs)]}, the tensors cloned; made once a run."""
+def step_call_inputs(problems, kernels, phase):
+    """The inputs that one step in the select form (both sides of every
+    branch, as the CUDA graph holds them) of each of ``problems`` [(label,
+    step, carry)] hands ``kernels`` [(module, name)], one call of each
+    distinct shape and keywords.  Returns {kernel: [(label, args, kwargs)]},
+    the tensors cloned."""
     import importlib
 
     import torch
-    from trajopt_tpu_torch import types as tt
     from trajopt_tpu_torch.runtime import graph
-    from trajopt_tpu_torch.solver import driver
 
-    problems = []
-    for b in BATCH_SIZES:
-        cfg, _, _, consts, scene, states = build_batch(b, device)
-        problems.append((f"batch{b} single", driver.fused_step(consts, cfg, scene, False,
-                                                               interact=False), states))
-    cfg, _, _, consts, scene, states = build_batch(GATE_BATCH, device, n_points=N_POINTS, stop=None,
-                                                   unjittered_first=True)
-    problems.append((f"batch{GATE_BATCH} gate", driver.fused_step(consts, cfg, scene, False,
-                                                                  interact=False), states))
-    for b, coupled in [(b, True) for b in FLEET_BATCHES] + [(FLEET_BATCHES[0], False)]:
-        cfg, _, _, consts, scene, states = build_fleet_batch(b, device)
-        flat = tt.SolverState(*(x.reshape((-1,) + tuple(x.shape[2:])) for x in states))
-        problems.append((f"batch{b} u{BATCH_FLEET} {'coupled' if coupled else 'decoupled'}",
-                         driver.fused_step(consts, cfg, scene, coupled, groups=b), flat))
-
-    mods = {m: importlib.import_module(f"trajopt_tpu_torch.ops.{m}") for m, _ in BATCH_KERNELS}
-    out, seen, real = {name: [] for _, name in BATCH_KERNELS}, set(), {}
+    mods = {m: importlib.import_module(f"trajopt_tpu_torch.ops.{m}") for m, _ in kernels}
+    out, seen, real = {name: [] for _, name in kernels}, set(), {}
 
     def spy(name, label):
         def call(*args, **kwargs):
@@ -293,22 +304,49 @@ def batch_call_inputs(device):
             if key not in seen:
                 seen.add(key)
                 kw = "".join(f" {k}={v}" for k, v in sorted(kwargs.items()))
-                out[name].append((f"phase 7 {label} {_dims(args)}{kw}",
+                out[name].append((f"{phase} {label} {_dims(args)}{kw}",
                                   tuple(a.clone() if torch.is_tensor(a) else a for a in args),
                                   dict(kwargs)))
             return real[name](*args, **kwargs)
         return call
 
-    for label, step, state in problems:
-        for m, name in BATCH_KERNELS:
+    for label, step, carry in problems:
+        for m, name in kernels:
             real[name] = getattr(mods[m], name)
             setattr(mods[m], name, spy(name, label))
         try:
             with graph.select_form():
-                step((state,))
+                step(carry)
         finally:
-            for m, name in BATCH_KERNELS:
+            for m, name in kernels:
                 setattr(mods[m], name, real[name])
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def batch_call_inputs(device):
+    """The inputs that phase 7's batch paths hand K1-K4 and the fused
+    launch (`step_call_inputs`) from the start of each problem of phase 7
+    (a) (B = 16 and 1024), (b) (the gate batch) and (c) (fleets coupled at
+    B = 4 and 16, decoupled at B = 4); made once a run."""
+    from trajopt_tpu_torch import types as tt
+    from trajopt_tpu_torch.solver import driver
+
+    problems = []
+    for b in BATCH_SIZES:
+        cfg, _, _, consts, scene, states = build_batch(b, device)
+        problems.append((f"batch{b} single", driver.fused_step(consts, cfg, scene, False,
+                                                               interact=False), (states,)))
+    cfg, _, _, consts, scene, states = build_batch(GATE_BATCH, device, n_points=N_POINTS, stop=None,
+                                                   unjittered_first=True)
+    problems.append((f"batch{GATE_BATCH} gate", driver.fused_step(consts, cfg, scene, False,
+                                                                  interact=False), (states,)))
+    for b, coupled in [(b, True) for b in FLEET_BATCHES] + [(FLEET_BATCHES[0], False)]:
+        cfg, _, _, consts, scene, states = build_fleet_batch(b, device)
+        flat = tt.SolverState(*(x.reshape((-1,) + tuple(x.shape[2:])) for x in states))
+        problems.append((f"batch{b} u{BATCH_FLEET} {'coupled' if coupled else 'decoupled'}",
+                         driver.fused_step(consts, cfg, scene, coupled, groups=b), (flat,)))
+    out = step_call_inputs(problems, BATCH_KERNELS, "phase 7")
     _sync(device)
     return out
 
@@ -323,9 +361,9 @@ def batch_chol_timing_inputs(device):
             + [((a[0] @ a[0].transpose(-1, -2)).contiguous(), a[1]) for _, a, _ in calls["chol_solve"]])
 
 
-def check_batch_chol(device, log):
-    """K3, K4 and the fused kernel on phase 7's own inputs
-    (`batch_call_inputs`), each call as the path makes it (its ``gmw`` and
+def check_chol_calls(device, log, calls):
+    """K3, K4 and the fused kernel on a path's own inputs (``calls``, from
+    `step_call_inputs`), each call as the path makes it (its ``gmw`` and
     ``want_l``), against the plain version on the same inputs: e within
     1e-4 relative of plain's and L too, |L L^T - (h + diag e)| within
     1e-5 |h| or twice plain's; x within 1e-3 relative of plain's or its
@@ -336,7 +374,6 @@ def check_batch_chol(device, log):
     import torch
     from trajopt_tpu_torch.ops import cuda_chol
 
-    calls = batch_call_inputs(device)
     errs = [0.0, 0.0, 0.0]
 
     def rel(a, b):
@@ -917,17 +954,21 @@ def check_chol(device, rng, log):
     return err, factors
 
 
+def _columns(a, v):
+    """``v`` as columns for ``a`` [..., m, m]: a vector right-hand side
+    [..., m] gets a last axis of 1."""
+    return v[..., None] if v.ndim == a.ndim - 1 else v
+
+
 def _residual(l, x, b):
     """|L L^T x - b| / |b| in float64."""
-    xm = x if x.ndim == 3 else x[..., None]
-    bm = b if b.ndim == 3 else b[..., None]
+    xm, bm = _columns(l, x), _columns(l, b)
     return float((l @ (l.transpose(-1, -2) @ xm) - bm).norm() / bm.norm())
 
 
 def _system_residual(a, x, b):
     """|A x - b| / |b| in float64."""
-    xm = x if x.ndim == 3 else x[..., None]
-    bm = b if b.ndim == 3 else b[..., None]
+    xm, bm = _columns(a, x), _columns(a, b)
     return float((a @ xm - bm).norm() / bm.norm())
 
 
@@ -1049,6 +1090,137 @@ def check_pd_solve(device, log):
     return err
 
 
+EIG_TOL = 1e-5       # K6 against float64: |w - w64| <= EIG_TOL x |H|_F, block by block
+LADDER_MARGIN = 1e-3  # a ladder trial whose float64 least eigenvalue is this far
+                      # (x |H|_F) from 0 has one PD verdict any float32 Cholesky must give
+
+
+PSD_KERNELS = (("cuda_eig", "eigvalsh"), ("cuda_chol", "mod_chol"), ("cuda_chol", "chol_solve"),
+               ("cuda_chol", "factor_solve"))
+
+
+@functools.lru_cache(maxsize=None)
+def psd_call_inputs(device):
+    """The inputs that phase 8's paths hand K6, K3, K4 and the fused launch
+    (`step_call_inputs`): from the start of each of its solves with each
+    method (`psd_cases`: the bridge at P=4 and the 64-robot cross coupled),
+    of its batch of 16 and of phase 7's batch of 1024 (K6's and the
+    ladder's largest shapes).  The ladder's calls of K3 are its PD test
+    (``gmw=False``) on the trials of every rung ([N*14,19,19]) and of each
+    bisection step ([N,19,19]); made once a run."""
+    from trajopt_tpu_torch.solver import driver
+
+    problems = []
+    for case in psd_cases():
+        cfg, _, _, consts, scene, state = case.build(device)
+        problems.append((case.label.removeprefix("phase 8 "),
+                         driver.fused_step(consts, cfg, scene, case.coupled), (state,)))
+    for method in PSD_METHODS:
+        for b in (PSD_BATCH, BATCH_SIZES[-1]):
+            cfg, _, _, consts, scene, states = build_batch(b, device)
+            step = driver.fused_step(consts, cfg.replace(psd_method=method), scene, False,
+                                     interact=False)
+            problems.append((f"batch{b} single {method}", step, (states,)))
+    out = step_call_inputs(problems, PSD_KERNELS, "phase 8")
+    _sync(device)
+    return out
+
+
+def ladder_trials(calls):
+    """(label, trials) of each PD test of the shift ladder among ``calls``
+    (`step_call_inputs`): K3's calls with ``gmw=False``."""
+    return [(name, args[0]) for name, args, kw in calls["mod_chol"] if kw.get("gmw") is False]
+
+
+def check_eig(device, log, calls):
+    """K6 (`cuda_eig.eigvalsh`) against the float64 eigenvalues of the same
+    float32 blocks (`torch.linalg.eigvalsh`, its plain version, on the CPU;
+    it reads the lower triangle, as K6 does), on the solver's own blocks
+    (``calls``, from `step_call_inputs`) and the edge blocks
+    (`testing.eig_edge_blocks`):
+    every eigenvalue within EIG_TOL x |H|_F of its block's, ascending, and
+    NaN throughout for a block with a non-finite entry.  Logs the float32
+    `torch.linalg.eigvalsh` on the card (finite blocks) beside it.  Returns
+    the largest abs error."""
+    import numpy as np
+    import torch
+    from trajopt_tpu_torch.ops import cuda_eig
+    from trajopt_tpu_torch.testing import EDGE_SEED, eig_edge_blocks
+
+    t = _f32(device)
+    cases = [(name, args[0]) for name, args, _ in calls["eigvalsh"]] + [
+        (name, t(h)) for name, h in eig_edge_blocks(np.random.default_rng(EDGE_SEED + 8))]
+    err = 0.0
+    for name, h in cases:
+        m = h.shape[-1]
+        w = cuda_eig.eigvalsh(h)
+        _sync(device)
+        flat, wf = h.reshape(-1, m, m), w.reshape(-1, m)
+        finite = torch.isfinite(flat).all(-1).all(-1)
+        check(bool(wf[~finite].isnan().all()), f"K6 {name}: a block with a non-finite entry "
+                                               "gives a number")
+        hd = flat[finite].double().cpu()
+        ref = torch.linalg.eigvalsh(hd)
+        scale = torch.linalg.matrix_norm(hd).clamp(min=1e-30)
+        got = wf[finite].double().cpu()
+        check(bool(torch.isfinite(got).all()), f"K6 {name}: a finite block gives a non-finite value")
+        check(bool((got.diff(dim=-1) >= 0).all()), f"K6 {name}: eigenvalues not ascending")
+        worst = float(((got - ref).abs().amax(-1) / scale).max())
+        check(worst <= EIG_TOL, f"K6 {name}: |w - w64| / |H|_F = {worst:.3g} (bound {EIG_TOL:g})")
+        lib = torch.linalg.eigvalsh(flat[finite]).double().cpu()
+        lib_dist = float(((lib - ref).abs().amax(-1) / scale).max())
+        from_lib = float(((got - lib).abs().amax(-1) / scale).max())
+        err = max(err, float((got - ref).abs().max()))
+        log(f"  K6 eigvalsh {name}: max |w - w64| / |H|_F {worst:.2e} (bound {EIG_TOL:g}); float32 "
+            f"torch.linalg.eigvalsh on the card {lib_dist:.2e}, K6 from it {from_lib:.2e}; "
+            f"{int((~finite).sum())} non-finite blocks, all NaN")
+    return err
+
+
+def check_ladder_trials(device, log, calls):
+    """K3's plain mode (``gmw=False``, what the shift ladder's PD test
+    launches) on the ladder's own trials (`ladder_trials` of ``calls``: every
+    rung's and every bisection step's; the solver's start blocks are
+    positive definite, so the trials of 256 random
+    indefinite blocks are added, where rungs fail and pass): the verdict
+    the ladder reads (a finite, positive diagonal) against the float64
+    spectrum, which decides it where the least eigenvalue is more than
+    LADDER_MARGIN x |H|_F from 0 (a float32 Cholesky succeeds above that
+    and fails below it); the plain version on the same trials beside it.
+    Logs how many trials each gets wrong there and how many lie within the
+    margin; both must get none wrong."""
+    import numpy as np
+    import torch
+    from trajopt_tpu_torch.ops import cuda_chol
+    from trajopt_tpu_torch.ops import gradients as gr
+    from trajopt_tpu_torch.testing import EDGE_SEED
+
+    def verdict(l):
+        d = torch.diagonal(l, dim1=-2, dim2=-1)
+        return torch.all(torch.isfinite(d) & (d > 0), dim=-1).cpu()
+
+    a = np.random.default_rng(EDGE_SEED + 9).normal(size=(FLEET * FLEET_PIECES, 19, 19))
+    sym = _f32(device)((a + a.transpose(0, 2, 1)) * 10.0)
+    trial = recorded_calls(cuda_chol, "mod_chol", lambda: gr.psd_repair_ladder(sym))[0][0]
+    cases = ladder_trials(calls) + [
+        (f"ladder trials of random indefinite {_dims((sym,))}: {_dims((trial,))}", trial)]
+    for name, h in cases:
+        kern = verdict(cuda_chol.mod_chol(h, gmw=False)[0])
+        plain = verdict(cuda_chol.mod_chol_plain(h, gmw=False)[0])
+        hd = h.double().cpu()
+        least = torch.linalg.eigvalsh(hd)[..., 0] / torch.linalg.matrix_norm(hd).clamp(min=1e-30)
+        pd, indefinite = least > LADDER_MARGIN, least < -LADDER_MARGIN
+        clear = pd | indefinite
+        wrong = int((kern[clear] != pd[clear]).sum())
+        wrong_plain = int((plain[clear] != pd[clear]).sum())
+        log(f"  K3 mod_chol gmw=False {name}: {int(kern.sum())} PD verdicts of {kern.numel()} "
+            f"(plain {int(plain.sum())}, kernel and plain differ on {int((kern != plain).sum())}); "
+            f"against float64 wrong on {wrong} (plain {wrong_plain}) of {int(clear.sum())}, "
+            f"{int((~clear).sum())} within the margin")
+        check(wrong == 0, f"K3 gmw=False {name}: {wrong} PD verdicts against the float64 spectrum")
+        check(wrong_plain == 0, f"K3 plain {name}: {wrong_plain} PD verdicts against float64")
+
+
 def check_kernels(device, log, seed=0, pair_diffs=None):
     """Every kernel against its plain version; returns max abs errors.
     ``pair_diffs``: the 64-robot start's pair differences [N,36,3] (built
@@ -1075,10 +1247,19 @@ def check_kernels(device, log, seed=0, pair_diffs=None):
     errs["chol_solve"], errs["factor_solve"] = check_solve(device, rng, factors, log)
     errs["factor_solve"] = max(errs["factor_solve"], check_pd_solve(device, log))
     lap("K4 and fused checks")
-    batch = check_batch_chol(device, log)
+    batch = check_chol_calls(device, log, batch_call_inputs(device))
     for name, err in zip(("mod_chol", "chol_solve", "factor_solve"), batch):
         errs[name] = max(errs[name], err)
     lap("K3, K4 and fused checks on phase 7's inputs")
+    calls = psd_call_inputs(device)
+    errs["eigvalsh"] = check_eig(device, log, calls)
+    check_ladder_trials(device, log, calls)
+    # the rest of phase 8's calls (the fused launch with gmw=False on the
+    # repaired slack blocks, the KKT's) as phase 7's are held
+    gmw = {**calls, "mod_chol": [c for c in calls["mod_chol"] if c[2].get("gmw") is not False]}
+    for name, err in zip(("mod_chol", "chol_solve", "factor_solve"), check_chol_calls(device, log, gmw)):
+        errs[name] = max(errs[name], err)
+    lap("K6, K3's plain mode on the ladder's trials, K3, K4 and fused checks on phase 8's inputs")
     return errs
 
 
@@ -1103,28 +1284,41 @@ def build_problem(pieces, device, dtype, **options):
             tt.init_state(ops, wp, cfg.init_piece_time, **kw))
 
 
-def solve_case(pieces, device, dtype, max_iters=MAX_ITERS, checkpointer=None, **options):
-    """One bridge solve; returns the result row (iterations, quality, timing,
-    the final spline; ``last_iter``: the last iteration's number, which a
-    resumed solve continues)."""
+def host_solve(problem, coupled, max_iters, checkpointer=None):
+    """The host-stepped solve of ``problem`` (`build_problem`'s or
+    `build_fleet`'s tuple): `driver.solve` when ``coupled`` is None, else
+    `driver.solve_multi`, until gnorm < stop or ``max_iters``.  Returns the
+    result row (iterations, quality, timing, the final ``state`` and its
+    splines and piece times as numpy; ``last_iter``: the last iteration's
+    number, which a resumed solve continues)."""
     from trajopt_tpu_torch.solver import driver
 
-    cfg, ops, cloud, consts, scene, state0 = build_problem(pieces, device, dtype, **options)
+    cfg, ops, cloud, consts, scene, state0 = problem
     t0 = time.perf_counter()
-    state, hist = driver.solve(consts, cfg, state0, scene, max_iters=max_iters,
-                               checkpointer=checkpointer)
+    if coupled is None:
+        state, hist = driver.solve(consts, cfg, state0, scene, max_iters=max_iters,
+                                   checkpointer=checkpointer)
+    else:
+        state, hist = driver.solve_multi(consts, cfg, state0, scene, coupled=coupled,
+                                         max_iters=max_iters)
     wall = time.perf_counter() - t0
     return {
-        "pieces": pieces,
         "iters": len(hist),
         "gnorm": hist[-1]["gnorm"],
-        "converged": len(hist) < MAX_ITERS and hist[-1]["gnorm"] < cfg.stop,
-        **single_quality(ops, cloud, state),
+        "converged": len(hist) < max_iters and hist[-1]["gnorm"] < cfg.stop,
+        **(single_quality if coupled is None else fleet_quality)(ops, cloud, state),
         "offset": cfg.offset,
         "median_iter_ms": statistics.median(h["wall_ms"] for h in hist),
         "solve_s": wall,
         "last_iter": hist[-1]["iter"],
+        "state": state,
     }
+
+
+def solve_case(pieces, device, dtype, max_iters=MAX_ITERS, checkpointer=None, **options):
+    """One bridge solve (`host_solve`); ``options`` go to the config."""
+    problem = build_problem(pieces, device, dtype, **options)
+    return dict(host_solve(problem, None, max_iters, checkpointer), pieces=pieces)
 
 
 def single_quality(ops, cloud, state):
@@ -1248,6 +1442,7 @@ def single_options_phase(device, card_rows, log):
 
     import numpy as np
     import torch
+    from trajopt_tpu_torch.config import TrajOptConfig
     from trajopt_tpu_torch.ops import _cuda
     from trajopt_tpu_torch.runtime.checkpoint import CheckpointManager
     from trajopt_tpu_torch.testing import OPTIMAL_PLANE_JAX_ROWS
@@ -1255,12 +1450,8 @@ def single_options_phase(device, card_rows, log):
     p = SLICE_PIECES[0]
     f32 = torch.float32
     launches, by_shape = {}, {}
-    for label, options, kernels in (
-            ("optimal_plane", dict(optimal_plane=True), SOLVE_KERNELS),
-            # the eigh shift replaces K3 (the GMW repair of the spline
-            # blocks, its only caller); the KKT and the slack step keep the
-            # fused kernel, the KKT refinement K4
-            ("eigh", dict(psd_method="eigh"), [k for k in SOLVE_KERNELS if k != "mod_chol"])):
+    for label, options in (("optimal_plane", dict(optimal_plane=True)),
+                           ("eigh", dict(psd_method="eigh"))):
         _cuda.reset_launches()
         row = solve_case(p, device, f32, **options)
         torch.cuda.synchronize()
@@ -1272,11 +1463,11 @@ def single_options_phase(device, card_rows, log):
             f"{row['min_clearance']:.4f}, median {row['median_iter_ms']:.2f} ms/iter, "
             f"solve {row['solve_s']:.2f} s")
         log_launches(key, launches[key], by_shape[key], log)
-        for name in kernels:
-            check(launches[key][name] > 0, f"{key}: kernel {name} was never launched by the solve")
+        check_path_launches(key, launches[key], *path_kernels(TrajOptConfig(**options), None, p))
         if label == "eigh":
             check_parity(key, row, reference_row("single", pieces=p), log)
-            log_syncs(f"steady p{p} eigh", single_steady_syncs(p, device, **options), log)
+            log_syncs(f"steady p{p} eigh (the second from the start)",
+                      single_steady_syncs(p, device, **options), log)
             continue
         cpu = solve_case(p, torch.device("cpu"), torch.float64, **options)
         jax_row = OPTIMAL_PLANE_JAX_ROWS[f"single p{p}"]
@@ -1347,24 +1538,12 @@ def fleet_pair_diffs(device):
 
 
 def solve_fleet(uavs, coupled, device, dtype, **options):
-    """One cross solve until gnorm < stop; returns (row, cfg, consts, scene,
+    """One cross solve (`host_solve`); returns (row, cfg, consts, scene,
     final state)."""
-    from trajopt_tpu_torch.solver import driver
-
-    cfg, ops, cloud, consts, scene, state0 = build_fleet(uavs, device, dtype, **options)
-    t0 = time.perf_counter()
-    state, hist = driver.solve_multi(consts, cfg, state0, scene, coupled=coupled,
-                                     max_iters=FLEET_MAX_ITERS)
-    wall = time.perf_counter() - t0
-    row = {
-        "uavs": uavs, "mode": "coupled" if coupled else "decoupled",
-        "iters": len(hist), "gnorm": hist[-1]["gnorm"],
-        "converged": len(hist) < FLEET_MAX_ITERS and hist[-1]["gnorm"] < cfg.stop,
-        **fleet_quality(ops, cloud, state),
-        "offset": cfg.offset, "solve_s": wall,
-        "median_iter_ms": statistics.median(h["wall_ms"] for h in hist),
-    }
-    return row, cfg, consts, scene, state
+    cfg, ops, cloud, consts, scene, state0 = problem = build_fleet(uavs, device, dtype, **options)
+    row = dict(host_solve(problem, coupled, FLEET_MAX_ITERS), uavs=uavs,
+               mode="coupled" if coupled else "decoupled")
+    return row, cfg, consts, scene, row["state"]
 
 
 def fleet_quality(ops, cloud, state):
@@ -1460,9 +1639,8 @@ def fleet_phase(device, log):
             f"gnorm {row['gnorm']:.4g}, median {row['median_iter_ms']:.2f} ms/iter, "
             f"solve {row['solve_s']:.2f} s, launches {launches[f'u{FLEET} {mode}']}")
         log(f"    launches by call shape: {by_shape[f'u{FLEET} {mode}']}")
-        for name in SOLVE_KERNELS:
-            check(launches[f"u{FLEET} {mode}"][name] > 0,
-                  f"u{FLEET} {mode}: kernel {name} was never launched by the solve")
+        check_path_launches(f"u{FLEET} {mode}", launches[f"u{FLEET} {mode}"],
+                            *path_kernels(cfg, coupled, FLEET_PIECES))
         check_parity(f"u{FLEET} {mode}", row, reference_row(mode, uavs=FLEET), log)
         _cuda.reset_launches()
         row["pair_clearance"] = pair_clearance_check(cfg, consts, state, log)
@@ -1522,8 +1700,7 @@ def optimal_fleet_phase(device, log):
         f"optimal_plane=0 {reference_row('coupled', uavs=FLEET)['iters']}), gnorm {row['gnorm']:.4g}, "
         f"median {row['median_iter_ms']:.2f} ms/iter, solve {row['solve_s']:.2f} s")
     log_launches(key, launches[key], by_shape[key], log)
-    for name in SOLVE_KERNELS:
-        check(launches[key][name] > 0, f"{key}: kernel {name} was never launched by the solve")
+    check_path_launches(key, launches[key], *path_kernels(cfg, True, FLEET_PIECES))
     check(jax_row["converged"], f"{key}: the JAX row did not converge")
     gap = abs(row["iters"] - jax_row["iters"])
     check(gap <= ITER_SLACK, f"{key}: iterations differ from JAX CPU float64 by {gap}")
@@ -1565,26 +1742,85 @@ def optimal_fleet_phase(device, log):
 # ---------------------------------------------------------------------------
 
 
+# a solve of phases 6 and 8: its label, the function building its problem
+# on a device (`build_problem` or `build_fleet` with its config options),
+# ``coupled`` (None for one UAV), its C++ row's key (mode, key) and the JAX
+# package's CPU float64 row it is held to instead, where it has one
+SolveCase = collections.namedtuple("SolveCase", "label build coupled cpp jax")
+
+
 def fused_cases():
-    """(label, problem builder, driver kind, coupled, C++ or JAX row key) of
-    the fused solves, in the order of the host-stepped ones they are held
-    to."""
+    """Phase 6's solves (`SolveCase`), in the order of the host-stepped ones
+    of phases 3-4 they are held to."""
     import torch
+    from trajopt_tpu_torch.testing import OPTIMAL_PLANE_JAX_ROWS
 
     f32 = torch.float32
     return [
-        (f"single p{SLICE_PIECES[0]}", lambda d: build_problem(SLICE_PIECES[0], d, f32),
-         None, ("single", dict(pieces=SLICE_PIECES[0]))),
-        (f"single p{SLICE_PIECES[1]}", lambda d: build_problem(SLICE_PIECES[1], d, f32),
-         None, ("single", dict(pieces=SLICE_PIECES[1]))),
-        (f"u{FLEET} coupled", lambda d: build_fleet(FLEET, d, f32), True,
-         ("coupled", dict(uavs=FLEET))),
-        (f"u{FLEET} decoupled", lambda d: build_fleet(FLEET, d, f32), False,
-         ("decoupled", dict(uavs=FLEET))),
-        (f"u{FLEET} coupled optimal_plane",
-         lambda d: build_fleet(FLEET, d, f32, optimal_plane=True), True,
-         ("jax", f"u{FLEET} coupled")),
+        SolveCase(f"single p{p}", lambda d, p=p: build_problem(p, d, f32), None,
+                  ("single", dict(pieces=p)), None) for p in SLICE_PIECES
+    ] + [
+        SolveCase(f"u{FLEET} {mode}", lambda d: build_fleet(FLEET, d, f32), mode == "coupled",
+                  (mode, dict(uavs=FLEET)), None) for mode in ("coupled", "decoupled")
+    ] + [
+        SolveCase(f"u{FLEET} coupled optimal_plane",
+                  lambda d: build_fleet(FLEET, d, f32, optimal_plane=True), True,
+                  ("coupled", dict(uavs=FLEET)), OPTIMAL_PLANE_JAX_ROWS[f"u{FLEET} coupled"]),
     ]
+
+
+def path_kernels(cfg, coupled, pieces):
+    """(the kernels a solve with ``cfg`` must launch, those it must not).
+    Past ns = 9P - 3 = 64 a single UAV's reduced KKT is block-tridiagonal
+    (K3 in plain mode on its 18 x 18 blocks, `solve_triangular` solves),
+    with no launch of `chol_solve`.  ``psd_method="eigh"`` shifts by K6's
+    eigenvalues where the GMW repair launches K3, its only caller below
+    that size; only "eigh" launches K6 (the ladder's PD test is K3's plain
+    mode)."""
+    tridiagonal = coupled is None and 9 * pieces - 3 > 64
+    on = [k for k in SOLVE_KERNELS if k != "chol_solve" or not tridiagonal]
+    if cfg.psd_method != "eigh":
+        return on, ["eigvalsh"]
+    if tridiagonal:
+        return on + ["eigvalsh"], []
+    return [k for k in on if k != "mod_chol"] + ["eigvalsh"], ["mod_chol"]
+
+
+def check_path_launches(label, launches, on, off=(), kernel_nodes=None):
+    """Every kernel of ``on`` launched (and, for a fused solve, held as a
+    node of its graph), none of ``off``."""
+    for name in on:
+        check(launches[name] > 0, f"{label}: kernel {name} was never launched")
+        if kernel_nodes is not None:
+            check(kernel_nodes[name] > 0, f"{label}: kernel {name} has no node in the graph")
+    for name in off:
+        check(launches[name] == 0, f"{label}: kernel {name} was launched {launches[name]} times")
+
+
+def check_solution(key, case, row, cfg, consts, state, log):
+    """A solve of ``case`` held to its reference: the JAX package's CPU
+    float64 row where the case has one (converged, iterations within
+    ITER_SLACK, ccd_time and ccd_len within 2%; the C++ row's offsets
+    printed beside it), else the C++ gate; clearance >= offset, and for a
+    fleet the pairwise clearance by K2."""
+    cpp = reference_row(case.cpp[0], **case.cpp[1])
+    if case.jax is None:
+        check_parity(key, row, cpp, log)
+    else:
+        check(case.jax["converged"], f"{key}: the JAX row did not converge")
+        gap = abs(row["iters"] - case.jax["iters"])
+        check(gap <= ITER_SLACK, f"{key}: iterations differ from JAX CPU float64 by {gap}")
+        check_parity(key, row, case.jax, log, against="JAX CPU float64")
+        dtime = abs(row["ccd_time"] - cpp["ccd_time"]) / cpp["ccd_time"]
+        dlen = abs(row["ccd_len"] - cpp["ccd_len"]) / cpp["ccd_len"]
+        log(f"  beside C++ {key}: iters {cpp['iters']} / {row['iters']}, ccd_time off "
+            f"{dtime * 100:.2f}%, ccd_len off {dlen * 100:.2f}%")
+    if case.coupled is not None:
+        from trajopt_tpu_torch.solver import driver
+
+        clr = driver.initial_pair_clearance(consts, state)
+        log(f"    pairwise clearance by K2 {clr:.5f} (offset {cfg.offset})")
+        check(clr >= cfg.offset - 1e-6, f"{key}: pairwise clearance {clr:.6f} below offset")
 
 
 def _fused_solve(consts, cfg, scene, state0, coupled, max_iters):
@@ -1620,31 +1856,32 @@ def flag_read_cost(cap, reps=10):
     return min(timed(True), timed(True)), min(timed(False), timed(False))
 
 
-def fused_phase(device, host_rows, log):
-    """Phase 6: every fused driver on the card at full width, each held to
-    the host-stepped solve of the same run (``host_rows``: the same
-    iteration count; the final state's largest difference printed, bit-equal
-    expected), to the C++ gate of phase 3-4 (or, with ``optimal_plane``, the
-    JAX CPU float64 row), pairwise clearance by K2 for fleets, and host
-    syncs of the solve = graph replays + the 2 final reads (iterations and
-    gnorm) this script makes.  Prints the kernel nodes per capture (each
-    runs once per replay; they are not executions), warm-up and capture ms,
-    wall ms per iteration beside the host-stepped solve's, and, over one
-    replay from the start state under torch.profiler, the device busy ms,
-    the idle share, and the busy ms of one host-stepped step from the same
-    state (the select form's extra device work), and what a host read of
-    the flag costs per replay (`flag_read_cost`)."""
-    import numpy as np
+def fused_phase(device, cases, host_rows, launches, by_shape, log):
+    """Phases 6 and 8: the fused driver of each of ``cases`` (`SolveCase`)
+    on the card at full width, with the counts set to 0 just before and
+    read just after, each held to the host-stepped solve of the same run
+    (``host_rows``: the same iteration count and a bit-equal final state),
+    to its reference (`check_solution`), to the kernels of its path
+    (`path_kernels`: launched and held as nodes of the graph, or not
+    launched), and to host syncs of the solve = graph replays + the 2
+    final reads (iterations and gnorm) this script makes.  Prints the kernel
+    nodes per capture (each runs once per replay; they are not executions),
+    warm-up and capture ms, wall ms per iteration beside the host-stepped
+    solve's, and, over one replay from the start state under
+    torch.profiler, the device busy ms, the idle share, and the busy ms of
+    one host-stepped step from the same state (the select form's extra
+    device work), and what a host read of the flag costs per replay
+    (`flag_read_cost`).  Returns the rows, with the final states."""
     import torch
     from trajopt_tpu_torch.ops import _cuda
     from trajopt_tpu_torch.runtime import graph
     from trajopt_tpu_torch.solver import driver, multi
-    from trajopt_tpu_torch.testing import OPTIMAL_PLANE_JAX_ROWS
 
     fused_rows = {}
-    for label, build, coupled, (mode, ref_key) in fused_cases():
-        cfg, ops, cloud, consts, scene, state0 = build(device)
-        host = host_rows[label]
+    for case in cases:
+        cfg, ops, cloud, consts, scene, state0 = case.build(device)
+        coupled = case.coupled
+        host = host_rows[case.label]
         max_iters = MAX_ITERS if coupled is None else FLEET_MAX_ITERS
         out = {}
 
@@ -1652,48 +1889,36 @@ def fused_phase(device, host_rows, log):
             state, it, gnorm = _fused_solve(consts, cfg, scene, state0, coupled, max_iters)
             out.update(state=state, it=int(it), gnorm=float(gnorm))
 
-        key = f"{label} fused"
+        key = f"{case.label} fused"
         _cuda.reset_launches()
         t0 = time.perf_counter()
         syncs = count_syncs(solve, outside=True)
         wall_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
-        launches, by_shape = dict(_cuda.LAUNCHES), shape_counts()
+        launches[key], by_shape[key] = dict(_cuda.LAUNCHES), shape_counts()
         run = graph.LAST_RUN
         state, it = out["state"], out["it"]
         quality = (single_quality if coupled is None else fleet_quality)(ops, cloud, state)
         row = {"iters": it, "gnorm": out["gnorm"], "offset": cfg.offset,
                "converged": it < max_iters and out["gnorm"] < cfg.stop, **quality}
-        fused_rows[label] = dict(row, state=state)
-        diff = max(float(np.abs(row["spline"] - host["spline"]).max()),
-                   float(np.abs(np.asarray(row["piece_time"]) - np.asarray(host["piece_time"])).max()))
+        fused_rows[case.label] = dict(row, state=state)
+        same = equal_trees(state, host["state"])
         log(f"  {key}: iters {it} (host-stepped {host['iters']}), gnorm {out['gnorm']:.4g}, "
-            f"replays {run.replays} of {run.steps_per_replay} step(s), max |fused - host-stepped| "
-            f"over splines and piece times {diff:.3g}")
+            f"replays {run.replays} of {run.steps_per_replay} step(s), final state bit-equal to "
+            f"the host-stepped solve's: {same}")
         log(f"    kernel nodes per capture (each runs once per replay; not executions): "
             + ", ".join(f"{k} {v}" for k, v in run.kernel_nodes.items()))
         log(f"    warm-up {run.warmup_ms:.1f} ms, capture {run.capture_ms:.1f} ms, replays "
             f"{run.replay_ms:.1f} ms = {run.replay_ms / max(it, 1):.3f} ms/iter; whole call "
             f"{wall_ms:.1f} ms = {wall_ms / max(it, 1):.3f} ms/iter; host-stepped median "
             f"{host['median_iter_ms']:.3f} ms/iter, mean {host['solve_s'] * 1e3 / host['iters']:.3f}")
-        log_launches(key, launches, by_shape, log)
-        on_path = [k for k in SOLVE_KERNELS
-                   if k != "chol_solve" or coupled is not None or 9 * consts.piece_num - 3 <= 64]
-        for name in on_path:
-            check(launches[name] > 0, f"{key}: kernel {name} was never launched")
-            check(run.kernel_nodes[name] > 0, f"{key}: kernel {name} has no node in the graph")
+        log_launches(key, launches[key], by_shape[key], log)
+        check_path_launches(key, launches[key], *path_kernels(cfg, coupled, consts.piece_num),
+                            kernel_nodes=run.kernel_nodes)
         check(it == host["iters"], f"{key}: {it} iterations, the host-stepped solve took "
                                    f"{host['iters']}")
-        if mode == "jax":
-            ref = OPTIMAL_PLANE_JAX_ROWS[ref_key]
-            check(ref["converged"], f"{key}: the JAX row did not converge")
-            check_parity(key, row, ref, log, against="JAX CPU float64")
-        else:
-            check_parity(key, row, reference_row(mode, **ref_key), log)
-        if coupled is not None:
-            clr = driver.initial_pair_clearance(consts, state)
-            log(f"    pairwise clearance by K2 {clr:.5f} (offset {cfg.offset})")
-            check(clr >= cfg.offset - 1e-6, f"{key}: pairwise clearance {clr:.6f} below offset")
+        check(same, f"{key}: the final state differs from the host-stepped solve's")
+        check_solution(key, case, row, cfg, consts, state, log)
         total = sum(syncs.values())
         log(f"    host syncs in the whole fused solve: {total}")
         for line, n in sorted(syncs.items()):
@@ -1816,11 +2041,11 @@ def batch_clearances(ops, cloud, splines, times, device):
     return torch.stack(out).cpu().numpy()
 
 
-def run_fused_path(label, solve, launches, by_shape, log, on_path=SOLVE_KERNELS):
+def run_fused_path(label, solve, launches, by_shape, log, on_path=SOLVE_KERNELS, off_path=()):
     """``solve()`` (a fused driver call) with the launch counts set to 0
     just before and read just after; every kernel of ``on_path`` must have
-    been launched and hold a node in the graph.  Returns (result, wall ms,
-    `graph.LAST_RUN`)."""
+    been launched and hold a node in the graph, none of ``off_path``
+    launched.  Returns (result, wall ms, `graph.LAST_RUN`)."""
     import torch
     from trajopt_tpu_torch.ops import _cuda
     from trajopt_tpu_torch.runtime import graph
@@ -1832,9 +2057,7 @@ def run_fused_path(label, solve, launches, by_shape, log, on_path=SOLVE_KERNELS)
     wall_ms = (time.perf_counter() - t0) * 1e3
     launches[label], by_shape[label] = dict(_cuda.LAUNCHES), shape_counts()
     run = graph.LAST_RUN
-    for name in on_path:
-        check(launches[label][name] > 0, f"{label}: kernel {name} was never launched")
-        check(run.kernel_nodes[name] > 0, f"{label}: kernel {name} has no node in the graph")
+    check_path_launches(label, launches[label], on_path, off_path, run.kernel_nodes)
     return out, wall_ms, run
 
 
@@ -2052,8 +2275,7 @@ def sharding_phase(device, fused_rows, launches, by_shape, log):
             launches[label], by_shape[label] = dict(_cuda.LAUNCHES), shape_counts()
             log(f"  {label}: states and diags bit-equal to multi_admm_step: {same}")
             check(same, f"{label}: the sharded step differs from multi_admm_step")
-            for name in SOLVE_KERNELS:
-                check(launches[label][name] > 0, f"{label}: kernel {name} was never launched")
+            check_path_launches(label, launches[label], SOLVE_KERNELS, ("eigvalsh",))
 
         label = f"u{FLEET} coupled fused axis_name"
         (state, it, gnorm), wall_ms, run = run_fused_path(
@@ -2086,8 +2308,7 @@ def sharding_phase(device, fused_rows, launches, by_shape, log):
             same &= equal_trees(tt.index(got, i), want) and equal_trees(tt.index(diags, i), want_diag)
         log(f"  {label}: each scenario bit-equal to its multi_admm_step: {same}")
         check(same, f"{label}: differs from the per-scenario steps")
-        for name in SOLVE_KERNELS:
-            check(launches[label][name] > 0, f"{label}: kernel {name} was never launched")
+        check_path_launches(label, launches[label], SOLVE_KERNELS, ("eigvalsh",))
 
         label = "scenario-sharded bridge solves, 4 scenes"
         scfg, sops, _, sconsts, _, sstate = build_problem(4, device, torch.float32)
@@ -2108,8 +2329,7 @@ def sharding_phase(device, fused_rows, launches, by_shape, log):
                      and equal_trees(gnorms[i], gnorm))
         log(f"  {label}: iterations {its.tolist()}, each bit-equal to its solve_fused: {same}")
         check(same, f"{label}: differs from the per-scenario solves")
-        for name in SOLVE_KERNELS:
-            check(launches[label][name] > 0, f"{label}: kernel {name} was never launched")
+        check_path_launches(label, launches[label], SOLVE_KERNELS, ("eigvalsh",))
     finally:
         dist.destroy_process_group()
 
@@ -2149,6 +2369,145 @@ def sharding_phase(device, fused_rows, launches, by_shape, log):
             if line.startswith("uav "):
                 log("    " + line)
 
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: every PSD repair on every driver
+# ---------------------------------------------------------------------------
+
+PSD_METHODS = ("eigh", "ladder")
+PSD_BATCH = 16              # phase 7's smallest single-UAV batch
+
+
+def psd_cases():
+    """Phase 8's solves (`SolveCase`): the bridge at P=4 and the 64-robot
+    cross coupled with each method; "eigh" held to the C++ gate, the ladder
+    to the JAX package's CPU float64 row (`testing.PSD_JAX_ROWS`)."""
+    import torch
+    from trajopt_tpu_torch.testing import PSD_JAX_ROWS
+
+    f32, p = torch.float32, SLICE_PIECES[0]
+    cases = []
+    for method in PSD_METHODS:
+        for name, build, coupled, cpp in (
+                (f"single p{p}", lambda d, m=method: build_problem(p, d, f32, psd_method=m), None,
+                 ("single", dict(pieces=p))),
+                (f"u{FLEET} coupled", lambda d, m=method: build_fleet(FLEET, d, f32, psd_method=m),
+                 True, ("coupled", dict(uavs=FLEET)))):
+            name = f"{name} {method}"
+            cases.append(SolveCase(f"phase 8 {name}", build, coupled, cpp,
+                                   PSD_JAX_ROWS[name] if method == "ladder" else None))
+    return cases
+
+
+def psd_host_phase(device, cases, launches, by_shape, log):
+    """Phase 8's host-stepped solves (`host_solve`), each with the counts
+    set to 0 just before and read just after: the kernels of its path
+    launched and the other repair's not (`path_kernels`), held to its
+    reference (`check_solution`), and the host syncs of one steady
+    iteration from its converged state.  Returns the rows."""
+    import torch
+    from trajopt_tpu_torch.ops import _cuda
+    from trajopt_tpu_torch.solver import driver
+
+    rows = {}
+    for case in cases:
+        cfg, _, _, consts, scene, _ = problem = case.build(device)
+        max_iters = MAX_ITERS if case.coupled is None else FLEET_MAX_ITERS
+        key = case.label
+        _cuda.reset_launches()
+        row = rows[key] = host_solve(problem, case.coupled, max_iters)
+        torch.cuda.synchronize()
+        launches[key], by_shape[key] = dict(_cuda.LAUNCHES), shape_counts()
+        log(f"  {key} host-stepped: iters {row['iters']}, gnorm {row['gnorm']:.4g}, median "
+            f"{row['median_iter_ms']:.2f} ms/iter, solve {row['solve_s']:.2f} s")
+        log_launches(key, launches[key], by_shape[key], log)
+        check_path_launches(key, launches[key], *path_kernels(cfg, case.coupled, consts.piece_num))
+        check_solution(key, case, row, cfg, consts, row["state"], log)
+        step = driver.fused_step(consts, cfg, scene, case.coupled)
+        steady = lambda: step((row["state"],))
+        steady()
+        log_syncs(f"steady {key} (from its converged state)", count_syncs(steady), log)
+    return rows
+
+
+def psd_batch(device, method, launches, by_shape, log):
+    """`solve_fused_batch` at phase 7's B = 16 (bench_scale.py's bridge
+    batch, 50 iterations at stop 0) with ``psd_method=method``: the kernels
+    of its path (`path_kernels`), scenarios 0, 7 and 15 within
+    BATCH_MATCH_TOL of their own `solve_fused`, every scenario's clearance
+    >= offset."""
+    from trajopt_tpu_torch import types as tt
+    from trajopt_tpu_torch.solver import driver
+
+    cfg, ops, cloud, consts, scene, states = build_batch(PSD_BATCH, device)
+    cfg = cfg.replace(psd_method=method)
+    label = f"phase 8 batch{PSD_BATCH} single p4 {method} fused"
+    on, off = path_kernels(cfg, None, consts.piece_num)
+    (out, it, gnorm), wall_ms, run = run_fused_path(
+        label, lambda: driver.solve_fused_batch(consts, cfg, states, scene, max_iters=BATCH_ITERS),
+        launches, by_shape, log, on_path=on, off_path=off)
+    it = int(it)
+    check(it == BATCH_ITERS, f"{label}: {it} iterations, stop 0 runs {BATCH_ITERS}")
+    step = driver.fused_step(consts, cfg, scene, False, interact=False)
+    busy, replay_wall = replay_busy(step, (states,), BATCH_ITERS, cfg.stop)
+    log_batch_run(label, PSD_BATCH, it, wall_ms, run, busy, replay_wall, log)
+    log_launches(label, launches[label], by_shape[label], log)
+    for i in (0, PSD_BATCH // 2 - 1, PSD_BATCH - 1):
+        ref, _, _ = driver.solve_fused(consts, cfg, tt.index(states, i), scene, max_iters=BATCH_ITERS)
+        diff = max_diff(tt.index(out, i), ref)
+        log(f"    scenario {i} against its own solve_fused: max |batch - own| over spline and "
+            f"piece time {diff:.3g} (held to {BATCH_MATCH_TOL:g})")
+        check(diff <= BATCH_MATCH_TOL, f"{label}: scenario {i} off its own solve by {diff:.3g}")
+    splines = out.spline.detach().double().cpu().numpy()
+    times = out.piece_time.detach().double().cpu().numpy()
+    clr = batch_clearances(ops, cloud, splines, times, device)
+    log(f"    curve clearance over the {PSD_BATCH} scenarios: min {clr.min():.5f} (offset "
+        f"{cfg.offset}), mean gnorm {float(gnorm):.4g}")
+    check(bool((clr >= cfg.offset).all()), f"{label}: a scenario's clearance is below offset")
+
+
+def psd_sharded(device, fused_state, launches, by_shape, log):
+    """The 64-robot cross coupled with ``psd_method="ladder"`` through
+    `solve_fused_multi(axis_name=...)` on a single-rank NCCL group: bit-equal
+    to this phase's unsharded fused ladder solve."""
+    import torch
+    import torch.distributed as dist
+    from trajopt_tpu_torch.parallel import sharded
+    from trajopt_tpu_torch.solver import driver
+
+    mesh = sharded.make_mesh(1)
+    try:
+        cfg, _, _, consts, scene, state0 = build_fleet(FLEET, device, torch.float32,
+                                                       psd_method="ladder")
+        label = f"phase 8 u{FLEET} coupled ladder fused axis_name"
+        on, off = path_kernels(cfg, True, consts.piece_num)
+        (state, it, _), _, run = run_fused_path(
+            label, lambda: driver.solve_fused_multi(consts, cfg, state0, scene, True,
+                                                    max_iters=FLEET_MAX_ITERS,
+                                                    axis_name=mesh.get_group(sharded.ROBOT_AXIS)),
+            launches, by_shape, log, on_path=on, off_path=off)
+        same = equal_trees(state, fused_state)
+        log(f"  {label}: {int(it)} iterations, state bit-equal to the unsharded fused solve's: "
+            f"{same}; replays {run.replay_ms / max(int(it), 1):.3f} ms/iter")
+        check(same, f"{label}: the final state differs from the unsharded fused solve's")
+    finally:
+        dist.destroy_process_group()
+
+
+def psd_phase(device, launches, by_shape, log):
+    """Phase 8: ``psd_method`` "eigh" and "ladder" on every driver: the
+    bridge at P=4 and the 64-robot cross coupled, each host-stepped
+    (`psd_host_phase`) and fused (`fused_phase`, as phase 6), then
+    `solve_fused_batch` at B = 16 (`psd_batch`) and the sharded fused solve
+    of the cross with the ladder (`psd_sharded`)."""
+    cases = psd_cases()
+    host_rows = psd_host_phase(device, cases, launches, by_shape, log)
+    fused_rows = fused_phase(device, cases, host_rows, launches, by_shape, log)
+    for method in PSD_METHODS:
+        psd_batch(device, method, launches, by_shape, log)
+    psd_sharded(device, fused_rows[f"phase 8 u{FLEET} coupled ladder"]["state"], launches,
+                by_shape, log)
 
 
 # ---------------------------------------------------------------------------
@@ -2576,6 +2935,51 @@ def kernel_timings(device, pair_diffs, rows):
     return out
 
 
+def psd_timings(device):
+    """K6 at each solver call shape of `psd_call_inputs` and K3's plain mode
+    at each of the ladder's trial shapes.  ms: per call between CUDA events
+    (kernel, plain, plain, kernel, each one's best); device ms: 50 launches
+    in one CUDA graph; busy ms: the kernels' own time per call under
+    torch.profiler.  Beside K6, float32 `torch.linalg.eigvalsh`, its plain
+    version and the one library call, per call and busy (it waits on the
+    host for its error check, so no graph holds it); beside K3,
+    `torch.linalg.cholesky_ex`.  Bound: K6 max(bytes / 3.35 TB/s, (4/3) m^3
+    N / 67 TFLOP/s), the bytes h read and w written once; K3 as in
+    `kernel_timings`, L and e written."""
+    import torch
+    from trajopt_tpu_torch.ops import cuda_chol, cuda_eig
+
+    calls = psd_call_inputs(device)
+    rows = []
+    for name, (h,), _ in calls["eigvalsh"]:
+        m = h.shape[-1]
+        n = h.numel() // (m * m)
+        kern = lambda h=h: cuda_eig.eigvalsh(h)
+        plain = lambda h=h: cuda_eig.eigvalsh_plain(h)
+        t = [time_ms(kern), time_ms(plain), time_ms(plain), time_ms(kern)]
+        bound, by = bound_ms(h.numel() * 4 + n * m * 4, n * 4 * m ** 3 / 3)
+        rows.append(dict(kernel="eigvalsh", case=name, shape=_dims((h,)), m=m, n=n,
+                         ms=min(t[0], t[3]), device_ms=device_ms(kern),
+                         busy_ms=device_busy_share(kern, 20)[0] / 20,
+                         plain_ms=min(t[1], t[2]), library_ms=min(t[1], t[2]),
+                         library_busy_ms=device_busy_share(plain, 20)[0] / 20,
+                         library_device_ms=None, bound_ms=bound, bound_by=by))
+    for name, h in ladder_trials(calls):
+        m = h.shape[-1]
+        n = h.numel() // (m * m)
+        kern = lambda h=h: cuda_chol.mod_chol(h, gmw=False)
+        lib = lambda h=h: torch.linalg.cholesky_ex(h)
+        t = [time_ms(kern), time_ms(lib), time_ms(lib), time_ms(kern)]
+        bound, by = bound_ms(2 * h.numel() * 4 + n * m * 4, n * (2 * m ** 3 / 3 + 2 * m ** 2))
+        rows.append(dict(kernel="mod_chol gmw=False", case=name, shape=_dims((h,)), m=m, n=n,
+                         ms=min(t[0], t[3]), device_ms=device_ms(kern),
+                         busy_ms=device_busy_share(kern, 20)[0] / 20,
+                         library_ms=min(t[1], t[2]),
+                         library_busy_ms=device_busy_share(lib, 20)[0] / 20,
+                         bound_ms=bound, bound_by=by))
+    return rows
+
+
 def time_other_port(port, out_path):
     """``--time-shapes``: `shape_timings` (K1, K2 and K5) and `chol_shape_timings` (with
     the digests of K3's and K4's outputs) of the port in checkout ``port``
@@ -2614,7 +3018,7 @@ def time_other_port(port, out_path):
     return 0
 
 
-def shape_counts(names=SOLVE_KERNELS):
+def shape_counts(names=SOLVE_KERNELS + ("eigvalsh",)):
     """{kernel: {call shape: launches}} since the last reset of the counts."""
     from trajopt_tpu_torch.ops import _cuda
 
@@ -2645,6 +3049,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     if args.time_shapes:
         return time_other_port(args.time_shapes, args.out)
+    from trajopt_tpu_torch.config import TrajOptConfig
     from trajopt_tpu_torch.ops import _cuda
 
     log = lambda s: print(s, flush=True)
@@ -2691,13 +3096,8 @@ def main() -> int:
             f"min clearance {row['min_clearance']:.4f}, median {row['median_iter_ms']:.2f} ms/iter, "
             f"solve {row['solve_s']:.2f} s, launches {launches[f'single p{pieces}']}")
         log(f"    launches by call shape: {by_shape[f'single p{pieces}']}")
-        # past ns = 9P - 3 = 64 the reduced KKT is block-tridiagonal (K3 in
-        # plain mode on its 18 x 18 blocks, `solve_triangular` solves): that
-        # path has no launch of `chol_solve`
-        on_path = [k for k in SOLVE_KERNELS if k != "chol_solve" or 9 * pieces - 3 <= 64]
-        for name in on_path:
-            check(launches[f"single p{pieces}"][name] > 0,
-                  f"p{pieces}: kernel {name} was never launched by the solve")
+        check_path_launches(f"p{pieces}", launches[f"single p{pieces}"],
+                            *path_kernels(TrajOptConfig(), None, pieces))
         check_parity(f"p{pieces}", row, reference_row("single", pieces=pieces), log)
         host_rows[f"single p{pieces}"] = row
         if pieces == SLICE_PIECES[0]:
@@ -2708,7 +3108,8 @@ def main() -> int:
         f"ccd_time {cpu['ccd_time']:.4f}, ccd_len {cpu['ccd_len']:.4f}")
     gap = abs(cpu["iters"] - card_iters)
     check(gap <= ITER_SLACK, f"card and CPU float64 iteration counts differ by {gap}")
-    log_syncs(f"steady p{SLICE_PIECES[0]}", single_steady_syncs(SLICE_PIECES[0], device), log)
+    log_syncs(f"steady p{SLICE_PIECES[0]} (the second from the start)",
+              single_steady_syncs(SLICE_PIECES[0], device), log)
     option_launches, option_shapes = single_options_phase(device, card_rows, log)
     launches.update(option_launches)
     by_shape.update(option_shapes)
@@ -2787,12 +3188,23 @@ def main() -> int:
     for shape, tm in large_kkt_timings(device).items():
         log(f"  P=16 KKT {shape}, ms per call: block-tridiagonal factor "
             f"{tm['factor_ms']:.4f}, block solve with 2 right-hand sides {tm['solve_ms']:.4f}")
+    log("  K6 at the solver's call shapes and K3's plain mode at the shift ladder's (ms per call "
+        "/ device ms, busy ms under torch.profiler; beside K6 float32 torch.linalg.eigvalsh, its "
+        "plain version and the library call, beside K3 torch.linalg.cholesky_ex: ms per call, "
+        "busy ms; bound):")
+    psd_rows = psd_timings(device)
+    for r in psd_rows:
+        log(f"    {r['kernel']} {r['case']}: kernel {r['ms']:.4f} / {r['device_ms']:.4f} (busy "
+            f"{r['busy_ms']:.4f}), library {r['library_ms']:.4f} (busy {r['library_busy_ms']:.4f}), "
+            f"bound {r['bound_ms']:.5f} ({r['bound_by']})")
+    times["eigvalsh"] = next(r for r in psd_rows if r["kernel"] == "eigvalsh"
+                             and r["shape"] == EIG_HEADLINE)
     phase_done(5)
 
     # -- phase 6 ------------------------------------------------------------
     log(f"== phase 6: the fused drivers, each solve one CUDA graph replayed (float32, on the "
         f"card; {smi})")
-    fused_rows = fused_phase(device, host_rows, log)
+    fused_rows = fused_phase(device, fused_cases(), host_rows, launches, by_shape, log)
     phase_done(6)
 
     # -- phase 7 ------------------------------------------------------------
@@ -2801,10 +3213,16 @@ def main() -> int:
     fleet_batch_phase(device, launches, by_shape, log)
     sharding_phase(device, fused_rows, launches, by_shape, log)
     phase_done(7)
+
+    # -- phase 8 ------------------------------------------------------------
+    log(f"== phase 8: every PSD repair on every driver (float32, on the card; {smi})")
+    psd_phase(device, launches, by_shape, log)
+    phase_done(8)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     path = {name: f"u{FLEET} coupled" for name in KERNELS}
     path["gjk_fw"] = f"u{FLEET} coupled pair clearance"
+    path["eigvalsh"] = f"phase 8 u{FLEET} coupled eigh"
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         tm = times[name]
@@ -2817,12 +3235,17 @@ def main() -> int:
             **{key: tm[key] for key in ("busy_ms", "library_busy_ms") if key in tm},
             "launches_by_path": {p: c[name] for p, c in launches.items()},
         })
-        if name in SOLVE_KERNELS:
-            kernels[-1]["launches_by_shape"] = {p: c[name] for p, c in by_shape.items()}
+        if name != "gjk_fw":
+            kernels[-1]["launches_by_shape"] = {p: c[name] for p, c in by_shape.items() if name in c}
         shapes = [r for r in chol_rows if r["kernel"] == name]
         if shapes:
             kernels[-1]["by_call_shape"] = shapes
             kernels[-1]["latency_floor"] = floor
+        if name == "mod_chol":
+            kernels[-1]["gmw_false_by_call_shape"] = [r for r in psd_rows
+                                                      if r["kernel"] == "mod_chol gmw=False"]
+        if name == "eigvalsh":
+            kernels[-1]["by_call_shape"] = [r for r in psd_rows if r["kernel"] == name]
         if name == "gjk_fw":
             kernels[-1]["by_call_shape"] = [r for r in rows if r["kernel"] == name]
             kernels[-1]["group_sweep_device_ms"] = sweep

@@ -3,9 +3,10 @@ it, on the CPU in float64: `solve_fused` against the JAX package's, every
 fused driver against the port's host-stepped one bit for bit, every step
 body in the select form (`runtime.graph.select_form`, the form a CUDA graph
 holds) without a host sync and bit-equal to the branch form, every
-`device_cond` site driven both ways, the P >= 8 KKT against the JAX
-package's, and the options the fused drivers refuse.  The fused multi-robot
-drivers against JAX are in tests/test_torch_fused_multi.py."""
+`device_cond` site driven both ways (the steps with ``psd_method="eigh"``
+and ``"ladder"`` too), and the P >= 8 KKT against the JAX package's.  The
+fused multi-robot drivers against JAX are in tests/test_torch_fused_multi.py,
+every fused driver with each PSD repair in tests/test_torch_psd.py."""
 
 import ast
 import collections
@@ -29,7 +30,7 @@ from trajopt_tpu.scenes import generators as jgen
 from trajopt_tpu.solver import driver as jdriver
 from trajopt_tpu_torch import config as tconfig
 from trajopt_tpu_torch import types as tt
-from trajopt_tpu_torch.ops import cuda_gjk, kkt
+from trajopt_tpu_torch.ops import cuda_eig, cuda_gjk, kkt
 from trajopt_tpu_torch.ops import splines as sp
 from trajopt_tpu_torch.runtime import graph
 from trajopt_tpu_torch.scenes import generators as gen
@@ -193,9 +194,11 @@ class NoHostSync(TorchDispatchMode):
 
 
 def _kernel_stand_in(plain):
-    """K2's plain version stands in for the kernel on the CPU, and its early
-    exit reads a flag on the host; the kernel on the card does not, so the
-    plain version runs outside the no-sync mode."""
+    """A plain version stands in for its kernel on the CPU and runs outside
+    the no-sync mode: K2's early exit reads a flag on the host, which the
+    kernel does not; and K6's, `torch.linalg.eigvalsh`, takes another LAPACK
+    path under a dispatch mode (eigenvectors too; other last bits), where
+    the kernel computes the same either way."""
     def run(*args):
         with _disable_current_modes():
             return plain(*args)
@@ -222,7 +225,8 @@ def _run_selected(fn, seen):
         return cond(pred, true_fn, false_fn, *operands)
 
     patches = [(graph, "device_cond", recording),
-               (cuda_gjk, "gjk_exact_plain", _kernel_stand_in(cuda_gjk.gjk_exact_plain))]
+               (cuda_gjk, "gjk_exact_plain", _kernel_stand_in(cuda_gjk.gjk_exact_plain)),
+               (cuda_eig, "eigvalsh_plain", _kernel_stand_in(cuda_eig.eigvalsh_plain))]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     try:
         for mod, name, value in patches:
@@ -253,6 +257,10 @@ def _bodies():
     out = {}
     cfg, consts, scene, state = single_problem()
     out["single"] = (lambda st: admm.admm_step(consts, cfg, st, scene), state, 12)
+    # the spline blocks are indefinite from the fifth step on
+    for method in ("eigh", "ladder"):
+        pcfg = cfg.replace(psd_method=method)
+        out[f"single_{method}"] = (lambda st, c=pcfg: admm.admm_step(consts, c, st, scene), state, 7)
     ocfg, oconsts, oscene, ostate = single_problem(optimal_plane=True)
     out["single_optimal_plane"] = (lambda st: admm.admm_step(oconsts, ocfg, st, oscene), ostate, 4)
     for coupled, name in ((True, "coupled"), (False, "decoupled")):
@@ -349,8 +357,8 @@ def _guard(seen):
         assert int(got[1]) == min(it + graph.STEPS_PER_REPLAY, 4)
 
 
-BODIES = ["single", "single_optimal_plane", "coupled_obstacles", "coupled_apart",
-          "decoupled_obstacles", "decoupled_apart", "cached", "grouped_coupled",
+BODIES = ["single", "single_eigh", "single_ladder", "single_optimal_plane", "coupled_obstacles",
+          "coupled_apart", "decoupled_obstacles", "decoupled_apart", "cached", "grouped_coupled",
           "grouped_decoupled", "batch", "ccd_conflict", "guard"]
 
 
@@ -437,24 +445,3 @@ def test_block_tridiagonal_kkt_matches_jax_at_p16():
         np.testing.assert_array_equal(np.isnan(tl), np.isnan(jl))
         assert np.isnan(jl).any()
         np.testing.assert_allclose(np.nan_to_num(tl), np.nan_to_num(jl), rtol=1e-10, atol=1e-12)
-
-
-# ---------------------------------------------------------------------------
-# refusals
-# ---------------------------------------------------------------------------
-
-
-def test_fused_drivers_refuse_what_is_not_ported():
-    """``psd_method="eigh"`` raises in every fused driver (`eigvalsh` waits
-    on the host), not in `solve`."""
-    cfg, consts, scene, state = fleet_problem(obstacles=False)
-    caches = multi.init_multi_caches(cfg, consts, 2, **F64)
-    eigh = dataclasses.replace(cfg, psd_method="eigh")
-    with pytest.raises(NotImplementedError, match="eigh"):
-        driver.solve_fused_multi(consts, eigh, state, scene, True, max_iters=1)
-    with pytest.raises(NotImplementedError, match="eigh"):
-        driver.solve_fused_multi_cached(consts, eigh, state, scene, True, caches, max_iters=1)
-    scfg, sconsts, sscene, sstate = single_problem(psd_method="eigh")
-    with pytest.raises(NotImplementedError, match="eigh"):
-        driver.solve_fused(sconsts, scfg, sstate, sscene, max_iters=1)
-    assert len(driver.solve(sconsts, scfg, sstate, sscene, max_iters=1, validate_init=False)[1]) == 1

@@ -20,7 +20,7 @@ from trajopt_tpu.ops import geometry as jgeo
 from trajopt_tpu.ops import smallchol as jsc
 from trajopt_tpu_torch import testing as kernel_cases
 from trajopt_tpu_torch.config import TrajOptConfig
-from trajopt_tpu_torch.ops import _cuda, cuda_chol, cuda_gjk, cuda_topk
+from trajopt_tpu_torch.ops import _cuda, cuda_chol, cuda_eig, cuda_gjk, cuda_topk
 from trajopt_tpu_torch.ops import geometry as geo
 
 torch.set_num_threads(1)
@@ -354,8 +354,9 @@ def test_chol_plain_matches_pallas_kernels(interpret_mode, shape, kind):
         lambda x: cuda_chol.mod_chol(x[:48].reshape(3, 4, 4)),
         lambda x: cuda_chol.chol_solve(x[:16].reshape(1, 4, 4), x[:4].reshape(1, 4)),
         lambda x: cuda_chol.factor_solve(x[:48].reshape(3, 4, 4), x[48:60].reshape(3, 4)),
+        lambda x: cuda_eig.eigvalsh(x[:48].reshape(3, 4, 4)),
     ],
-    ids=["smallest_k", "gjk_exact", "mod_chol", "chol_solve", "factor_solve"],
+    ids=["smallest_k", "gjk_exact", "mod_chol", "chol_solve", "factor_solve", "eigvalsh"],
 )
 def test_off_cpu_tensors_never_take_the_plain_path(call):
     """A tensor that is not on the CPU goes to the kernel route, which takes

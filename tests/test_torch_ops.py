@@ -144,13 +144,6 @@ def test_piece_grads_and_hessians_match_jax(grad_mode):
             _close(g, w, rtol=1e-9)
 
 
-def test_psd_methods_other_than_gmw_are_refused():
-    """Of the methods other than "gmw", "eigh" is ported; "ladder" (reached
-    from no solver path of the JAX package) is refused."""
-    with pytest.raises(NotImplementedError, match="psd_method"):
-        gr.apply_psd_repair(TCFG.replace(psd_method="ladder"), torch.eye(19, **F64)[None])
-
-
 def _psd_blocks(kind, seed=7):
     """[6,19,19] symmetric blocks: indefinite, positive definite, or with
     a NaN or an inf entry in some blocks (the Gershgorin fallback)."""

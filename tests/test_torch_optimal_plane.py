@@ -314,16 +314,18 @@ def test_cli_runs_with_optimal_plane_config(tmp_path, capsys, cli):
     assert len((tmp_path / "m.jsonl").read_text().splitlines()) == 2
 
 
-def jax_rows():
-    """The JAX package's CPU float64 solves behind chip_smoke.py's
-    ``optimal_plane`` gates: the bridge (20000 points, P = 4) and the
-    64-robot cross coupled, in the configurations of chip_smoke.py's
-    `build_problem` and `build_fleet` with ``optimal_plane=True``.  Returns
-    {name: row} with the keys of `testing.OPTIMAL_PLANE_JAX_ROWS`."""
+def jax_rows(**options):
+    """The JAX package's CPU float64 solves behind chip_smoke.py's gates
+    held to JAX rows: the bridge (20000 points, P = 4) and the 64-robot
+    cross coupled, in the configurations of chip_smoke.py's `build_problem`
+    and `build_fleet` with ``options`` (``optimal_plane=True`` for
+    `testing.OPTIMAL_PLANE_JAX_ROWS`, ``psd_method="ladder"`` for
+    `testing.PSD_JAX_ROWS`).  Returns {"single p4": row, "u64 coupled":
+    row}."""
     from trajopt_tpu.solver import multi as jmulti
 
     rows = {}
-    cfg = TrajOptConfig(ks=1e-8, max_planes=16, max_ccd_candidates=16, optimal_plane=True)
+    cfg = TrajOptConfig(ks=1e-8, max_planes=16, max_ccd_candidates=16, **options)
     cloud, wp = gen.bridge_scene(n_points=20000, seed=0, n_pieces=4)
     ops = sp.build_spline_ops(4, cfg.res)
     state, hist = jdriver.solve(jt.device_consts(ops), cfg,
@@ -336,7 +338,7 @@ def jax_rows():
         ccd_time=st["ccd_time"], ccd_len=st["ccd_len"],
         min_clearance=float(jmt.min_curve_clearance(ops, spline, cloud, piece_time)))
     cfg = TrajOptConfig(res=8, ks=1e-3, max_planes=16, max_self_planes=4,
-                        max_ccd_candidates=16, optimal_plane=True)
+                        max_ccd_candidates=16, **options)
     cloud = gen.cross_scene(n_points=4000, seed=0)
     wps = gen.assign_lanes(gen.cross_waypoints(64, 4), cloud)
     ops = sp.build_spline_ops(4, cfg.res)
@@ -357,7 +359,7 @@ def jax_rows():
 def test_jax_rows_of_the_card_gates():
     """`testing.OPTIMAL_PLANE_JAX_ROWS`, which chip_smoke.py holds the card's
     ``optimal_plane`` solves to, are what the JAX package computes (~3 min)."""
-    rows = jax_rows()
+    rows = jax_rows(optimal_plane=True)
     assert set(rows) == set(testing.OPTIMAL_PLANE_JAX_ROWS)
     for name, row in rows.items():
         want = testing.OPTIMAL_PLANE_JAX_ROWS[name]

@@ -128,6 +128,10 @@ def _cases(rank, out):
         fused, it, gnorm = driver.solve_fused_multi(consts, cfg, local, scene, coupled,
                                                     max_iters=40, axis_name=group)
         out[f"fused {coupled}"] = (sharded.gather_robots(fused, mesh), it, gnorm)
+    for method in ("eigh", "ladder"):
+        fused, it, gnorm = driver.solve_fused_multi(consts, cfg.replace(psd_method=method), local,
+                                                    scene, True, max_iters=9, axis_name=group)
+        out[f"fused {method}"] = (sharded.gather_robots(fused, mesh), it, gnorm)
     # the host-stepped loop on this rank's robots, the plane caches sharded too
     ocfg = cfg.replace(optimal_plane=True)
     got, history = driver.solve_multi(consts, ocfg, local, scene, coupled=True, max_iters=4,
@@ -270,6 +274,22 @@ def test_sharded_fused_solve_matches_one_process(job, coupled):
     want, want_it, want_gnorm = driver.solve_fused_multi(consts, cfg, state, scene, coupled,
                                                          max_iters=40)
     assert int(it) == int(want_it) < 40 and float(gnorm) < cfg.stop
+    _close_trees(got, want, 1e-12)
+    _close(gnorm, want_gnorm, 1e-10)
+
+
+@pytest.mark.parametrize("method", ["eigh", "ladder"])
+def test_sharded_fused_solve_with_psd_method_matches_one_process(job, method):
+    """`solve_fused_multi(axis_name=group)` coupled with ``psd_method``
+    "eigh" and "ladder", 9 iterations on two ranks (the repairs shift
+    blocks from the fifth): the one-process run's iterations, state to
+    rtol 1e-12."""
+    results, _ = job
+    got, it, gnorm = results[f"fused {method}"]
+    cfg, consts, scene, state = fleet()
+    want, want_it, want_gnorm = driver.solve_fused_multi(
+        consts, cfg.replace(psd_method=method), state, scene, True, max_iters=9)
+    assert int(it) == int(want_it)
     _close_trees(got, want, 1e-12)
     _close(gnorm, want_gnorm, 1e-10)
 

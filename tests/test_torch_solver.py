@@ -93,36 +93,47 @@ def test_solve_matches_jax(fixture):
     np.testing.assert_allclose(float(state.piece_time), float(jfinal.piece_time), atol=1e-6)
 
 
-def test_unported_options_raise(fixture):
-    """What the single-robot path still refuses: ``psd_method="ladder"``."""
-    cfg, ops, wp, cloud, _, _, _ = fixture
-    cfg = port_cfg(cfg)
-    args = (tt.device_consts(ops, **F64), cfg.replace(psd_method="ladder"),
-            tt.init_state(ops, wp, 20.0, **F64), tt.make_scene(cloud, **F64))
-    with pytest.raises(NotImplementedError, match="ladder"):
-        driver.solve(*args, max_iters=1)
-    with pytest.raises(NotImplementedError, match="ladder"):
-        admm.admm_step(*args)
+def _three_steps_with(fixture, method):
+    """Three steps with ``psd_method=method`` from the first iterate with
+    live planes against the JAX package's, state and StepDiag at rtol
+    1e-8; a spline block the steps repair is indefinite."""
+    from trajopt_tpu_torch.ops import gradients as gr
 
-
-def test_three_admm_steps_with_eigh_match_jax(fixture):
-    """``psd_method="eigh"`` (the reference's eigenvalue shift, then a plain
-    Cholesky solve of the slack step): three steps from the first iterate
-    with live planes, rtol 1e-8."""
     cfg, ops, wp, cloud, (jc, jscene, jstate), _, jhist = fixture
     k = next(h["iter"] for h in jhist if h["n_planes"] > 0)
     jstate, _ = jdriver.solve(jc, cfg, jstate, jscene, max_iters=k, validate_init=False)
-    cfg = cfg.replace(psd_method="eigh")
+    cfg = cfg.replace(psd_method=method)
     consts, scene = tt.from_numpy(jc, **F64), tt.from_numpy(jscene, **F64)
     state = tt.from_numpy(jstate, **F64)
+    least = float("inf")
     for _ in range(3):
         jstate, jdiag = jadmm.admm_step(jc, cfg, jstate, jscene)
+        _, h = gr.piece_grads_and_hessians(consts, port_cfg(cfg), state.spline, state.piece_time,
+                                           admm.separate_planes(consts, port_cfg(cfg), state.spline,
+                                                                scene)[0],
+                                           *state[2:], repair=False)
+        least = min(least, float(torch.linalg.eigvalsh(h).min()))
         state, diag = admm.admm_step(consts, port_cfg(cfg), state, scene)
         for got, want in zip(tt.to_numpy(state), jstate):
             _close(got, want, 1e-8)
         for got, want in zip(tt.to_numpy(diag), jdiag):
             _close(got, want, 1e-8)
     assert int(diag.n_planes) > 0
+    assert least < 0
+
+
+def test_three_admm_steps_with_eigh_match_jax(fixture):
+    """``psd_method="eigh"`` (the reference's eigenvalue shift, then a plain
+    Cholesky solve of the slack step): three steps from the first iterate
+    with live planes, rtol 1e-8."""
+    _three_steps_with(fixture, "eigh")
+
+
+def test_three_admm_steps_with_ladder_match_jax(fixture):
+    """``psd_method="ladder"`` (the Cholesky shift ladder on the spline and
+    the slack blocks, then a plain Cholesky solve of the slack step): three
+    steps from the first iterate with live planes, rtol 1e-8."""
+    _three_steps_with(fixture, "ladder")
 
 
 def test_steps_restore_the_callers_tf32_flags():

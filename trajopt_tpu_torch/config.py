@@ -79,11 +79,11 @@ class TrajOptConfig:
     use_pallas_gjk: bool | None = None  # None = auto (TPU + float32)
     max_iters: int = 1_000_000
     # PSD repair of the per-piece Newton blocks (Gradient_admm.h:40-53):
-    #   "gmw"    — GMW81 modified Cholesky in one fused Pallas pass (default;
-    #              ~0.04 ms at [256,19,19] — see ops/pallas_chol.py),
-    #   "eigh"   — reference-exact minimal spectrum shift (the test oracle;
-    #              ~4 ms/call: XLA's batched eigh is launch-bound here),
-    #   "ladder" — Cholesky shift ladder (~9 ms/call; kept for comparison).
+    #   "gmw"    — GMW81 modified Cholesky (default; kernel K3, ops/cuda_chol.py),
+    #   "eigh"   — reference-exact minimal spectrum shift (eigenvalues by
+    #              kernel K6, ops/cuda_eig.py),
+    #   "ladder" — Cholesky shift ladder (K3's plain mode as the PD test).
+    # Each runs in every driver; any other name raises ValueError.
     psd_method: str = "gmw"
     # "analytic": closed-form batched spline grad/Hessian einsums (default,
     #   ops/gradients.py::analytic_spline_gh); "autodiff": jacfwd(grad) oracle

@@ -27,7 +27,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("topk.cu", "gjk.cu", "gjk_fw.cu", "chol.cu")
+SOURCES = ("topk.cu", "gjk.cu", "gjk_fw.cu", "chol.cu", "eig.cu")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -40,7 +40,7 @@ FLAGS = (
 # which then runs once per replay uncounted (`runtime.graph.capture` keeps
 # the per-capture count, `Captured.kernel_nodes`).
 LAUNCHES = {"smallest_k": 0, "gjk_exact": 0, "gjk_fw": 0, "mod_chol": 0, "chol_solve": 0,
-            "factor_solve": 0}
+            "factor_solve": 0, "eigvalsh": 0}
 LAUNCH_SHAPES: collections.Counter = collections.Counter()
 
 _lib: ctypes.CDLL | None = None
@@ -57,6 +57,7 @@ _SIGNATURES = {
     "trajopt_chol_solve": [_vp, _vp, _vp, _int, _int, _int, _vp],
     "trajopt_factor_solve": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _float, _vp],
     "trajopt_chol_probe": [_vp, _int, _int, _vp],
+    "trajopt_eigvalsh": [_vp, _vp, _int, _int, _vp],
 }
 
 

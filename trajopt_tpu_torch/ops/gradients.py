@@ -5,9 +5,11 @@ Port of `trajopt_tpu/ops/gradients.py`.  Each piece's 19 local variables
 (18 control-point coordinates + 1 time) get a closed-form gradient/Hessian
 (`analytic_spline_gh`, the default) or an autodiff one
 (``torch.func.vmap(jacfwd(grad))``, ``grad_mode="autodiff"``).  PSD repair
-is the GMW modified Cholesky (kernel K3 on the card, the default) or the
-reference's eigenvalue shift (``psd_method="eigh"``); the JAX package's
-``"ladder"`` repair, reached from no solver path there, is not ported.
+is the GMW modified Cholesky (kernel K3 on the card, the default), the
+reference's eigenvalue shift (``psd_method="eigh"``, kernel K6) or the
+Cholesky shift ladder (``psd_method="ladder"``, K3's plain mode).  None of
+them reads anything back to the host, so every driver, the fused ones
+included, takes each.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from torch.func import grad, jacfwd, vmap
 
 from ..config import TrajOptConfig
 from ..types import Planes, SplineConsts
-from . import cuda_chol
+from . import cuda_chol, cuda_eig
 from . import energies as en
 
 N_CP = 6        # order + 1
@@ -308,16 +310,14 @@ def piece_grads_and_hessians(
 def psd_repair(h: torch.Tensor) -> torch.Tensor:
     """Batched spectrum shift: ``h + (0.01 - w_min) I`` where the least
     eigenvalue w_min is negative (the reference's repair on a failed
-    Cholesky, Gradient_admm.h:44-53).  A block whose eigenvalues come out
-    non-finite is shifted by its Gershgorin bound instead, which can only
-    over-damp.  A block holding a non-finite entry goes to `eigvalsh` as the
-    identity (on the card a non-finite block would make the solver raise)
-    and takes the Gershgorin bound, as its NaN eigenvalues do in the
-    reference.  On the card `eigvalsh` waits for its error check: one host
-    sync a call."""
+    Cholesky, Gradient_admm.h:44-53), the eigenvalues from K6 on the card.
+    A block whose eigenvalues come out non-finite is shifted by its
+    Gershgorin bound instead, which can only over-damp.  A block holding a
+    non-finite entry goes to `cuda_eig.eigvalsh` as the identity and takes
+    the Gershgorin bound, as its NaN eigenvalues do in the reference."""
     eye = torch.eye(h.shape[-1], dtype=h.dtype, device=h.device)
     finite = torch.isfinite(h).all(-1).all(-1)
-    wmin = torch.linalg.eigvalsh(torch.where(finite[..., None, None], h, eye))[..., 0]
+    wmin = cuda_eig.eigvalsh(torch.where(finite[..., None, None], h, eye))[..., 0]
     diag = torch.diagonal(h, dim1=-2, dim2=-1)
     gersh = (diag - (h.abs().sum(-1) - diag.abs())).amin(-1)
     wmin = torch.where(finite & torch.isfinite(wmin), wmin, gersh)
@@ -325,15 +325,73 @@ def psd_repair(h: torch.Tensor) -> torch.Tensor:
     return h + shift[..., None, None] * eye
 
 
-def check_psd_method(cfg: TrajOptConfig) -> None:
-    """``psd_method`` is "gmw" or "eigh"; "ladder" is refused."""
-    if cfg.psd_method not in ("gmw", "eigh"):
-        raise NotImplementedError(
-            f"psd_method={cfg.psd_method!r} is not ported to torch; use 'gmw' or 'eigh'"
-        )
+_LADDER_RUNGS = 13     # nonzero rungs spanning _LADDER_DECADES below Gershgorin
+_LADDER_DECADES = 6.0  # G can overestimate -lambda_min by 1e4+ on real blocks
+_LADDER_BISECT = 3     # geometric-bisection refinements of the bracketing rungs
+
+
+def _chol_ok(mat: torch.Tensor) -> torch.Tensor:
+    """[..., m, m] -> [...] bool: does the plain Cholesky factor of ``mat``
+    have a finite, positive diagonal?  K3 in plain mode on the card (no
+    host read, unlike `torch.linalg.cholesky_ex`), `smallchol.cholesky` on
+    the CPU."""
+    m = mat.shape[-1]
+    l, _ = cuda_chol.mod_chol(mat.reshape(-1, m, m).contiguous(), gmw=False)
+    ld = torch.diagonal(l, dim1=-2, dim2=-1).reshape(mat.shape[:-1])
+    return torch.all(torch.isfinite(ld) & (ld > 0), dim=-1)
+
+
+def psd_repair_ladder(h: torch.Tensor) -> torch.Tensor:
+    """PSD repair by a parallel Cholesky shift ladder
+    (`trajopt_tpu/ops/gradients.py::psd_repair_ladder`): factor ``h + s_j I``
+    for 0 and 13 geometric rungs s_j spanning 6 decades below the Gershgorin
+    bound G = max(-min_i(h_ii - sum_j!=i |h_ij|), 1e-30), all in one batched
+    plain Cholesky (`_chol_ok`), take the smallest rung that factors, and
+    refine it between its lower neighbour and itself by 3 geometric
+    bisections, one batched Cholesky each.  PD blocks get shift 0; a block
+    where no rung factors (H + G I numerically singular) takes 1.1 G; a
+    positive shift gets the reference's +0.01 floor.  A block holding a NaN
+    comes back unchanged."""
+    m = h.shape[-1]
+    eye = torch.eye(m, dtype=h.dtype, device=h.device)
+    diag = torch.diagonal(h, dim1=-2, dim2=-1)
+    offsum = torch.sum(torch.abs(h), dim=-1) - torch.abs(diag)
+    gersh = torch.clamp(-torch.amin(diag - offsum, dim=-1), min=1e-30)     # >= -lambda_min
+    ratio = 10.0 ** (_LADDER_DECADES / (_LADDER_RUNGS - 1))
+    expo = torch.arange(1 - _LADDER_RUNGS, 1, dtype=h.dtype, device=h.device) * (
+        _LADDER_DECADES / (_LADDER_RUNGS - 1))                              # -DECADES..0
+    shifts = torch.cat([h.new_zeros(1), torch.pow(10.0, expo)]) * gersh[..., None]   # [..., S+1]
+    ok = _chol_ok(h[..., None, :, :] + shifts[..., None, None] * eye)       # [..., S+1]
+    # the smallest rung that factors; 0 where none does, as jnp.argmax of
+    # an all-False row (torch.argmax takes no bool: first max of a 0/1 cast)
+    first = torch.argmax(ok.to(torch.uint8), dim=-1)
+    hi = torch.gather(shifts, -1, first[..., None])[..., 0]
+    # measure-zero degeneracy: H + G*I numerically singular -> bump past bound
+    hi = torch.where(torch.any(ok, dim=-1), hi, 1.1 * gersh)
+    # refine within (hi/ratio, hi]; blocks settled at rung 0 or the floor
+    # rung 1 are not refined
+    refine = first > 1
+    lo = hi / ratio
+    for _ in range(_LADDER_BISECT):
+        mid = torch.sqrt(lo * hi)
+        mid_ok = _chol_ok(h + torch.where(refine, mid, gersh)[..., None, None] * eye)
+        hi = torch.where(refine & mid_ok, mid, hi)
+        lo = torch.where(refine & ~mid_ok, mid, lo)
+    # zero shift iff rung 0 itself factored: on all-fail blocks first == 0
+    # too, but ok[..., 0] is False there, so the 1.1 G bump is kept
+    shift = torch.where(ok[..., 0], 0.0, hi)
+    shift = torch.where(shift > 0, shift + 0.01, 0.0)                       # reference floor
+    return h + shift[..., None, None] * eye
 
 
 def apply_psd_repair(cfg: TrajOptConfig, h: torch.Tensor) -> torch.Tensor:
-    """Dispatch on ``cfg.psd_method``: "gmw" (default) or "eigh"."""
-    check_psd_method(cfg)
-    return psd_repair(h) if cfg.psd_method == "eigh" else psd_repair_gmw(h)
+    """Dispatch on ``cfg.psd_method``: "gmw" (default), "eigh" or "ladder".
+    Any other name raises `ValueError`, where the JAX package takes GMW for
+    it in the direction and the ladder in the slack step."""
+    if cfg.psd_method == "eigh":
+        return psd_repair(h)
+    if cfg.psd_method == "ladder":
+        return psd_repair_ladder(h)
+    if cfg.psd_method == "gmw":
+        return psd_repair_gmw(h)
+    raise ValueError(f"unknown psd_method {cfg.psd_method!r}; expected 'gmw', 'eigh' or 'ladder'")

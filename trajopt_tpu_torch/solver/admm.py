@@ -380,7 +380,6 @@ def slack_update(
     A ladder stage is evaluated when any piece of any robot still lacks an
     accepted rung, where the reference's vmapped `lax.cond` selects per
     robot; the first accepted rung of every piece is the same either way."""
-    gr.check_psd_method(cfg)
     p_num = consts.piece_num
     lead = state.spline.shape[:-2]
     n_pc = state.t_slack.numel()                     # robots x pieces
@@ -406,10 +405,10 @@ def slack_update(
     g = g * m
     eye = torch.eye(gr.N_LOC, dtype=h.dtype, device=h.device)
     h = torch.where((m[:, :, None] * m[:, None, :]) > 0, h, eye[None])
-    if cfg.psd_method == "eigh":
-        # spectrum shift to PD, then the plain Cholesky factor and solve in
-        # one launch (the reference's `smallchol.solve_pd`)
-        h = gr.psd_repair(h)
+    if cfg.psd_method != "gmw":
+        # spectrum shift or shift ladder to PD, then the plain Cholesky
+        # factor and solve in one launch (the reference's `smallchol.solve_pd`)
+        h = gr.apply_psd_repair(cfg, h)
     # repair (GMW) + factor + solve in one launch on the card; the factor is not kept
     d = -cuda_chol.factor_solve(h.contiguous(), g.contiguous(), gmw=cfg.psd_method == "gmw",
                                 want_l=False)[2]

@@ -266,17 +266,6 @@ def solve_multi(
     return state, history
 
 
-def _check_fused(cfg: TrajOptConfig) -> None:
-    """Options the fused drivers refuse: ``psd_method="eigh"``, whose
-    `torch.linalg.eigvalsh` waits on the host for its error check and so
-    cannot run inside a CUDA graph (the host-stepped drivers take it)."""
-    if cfg.psd_method == "eigh":
-        raise NotImplementedError(
-            "psd_method='eigh' is not available in the fused drivers: eigvalsh synchronizes "
-            "with the host for its error check; use solve / solve_multi or psd_method='gmw'"
-        )
-
-
 def fused_step(consts: SplineConsts, cfg: TrajOptConfig, scene: Scene,
                coupled: bool | None = None, cached: bool = False, **multi_options):
     """The step the fused drivers loop, ``step(carry) -> (carry, gnorm)``
@@ -285,7 +274,6 @@ def fused_step(consts: SplineConsts, cfg: TrajOptConfig, scene: Scene,
     with ``cached`` `multi.multi_admm_step_cached` on ``(state, caches)``;
     ``multi_options`` (``axis_name``, ``interact``, ``groups``) go to the
     multi-robot step."""
-    _check_fused(cfg)
     if coupled is None:
         def step(carry):
             new, diag = admm.admm_step(consts, cfg, carry[0], scene)

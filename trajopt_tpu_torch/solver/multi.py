@@ -369,8 +369,8 @@ def _all_planes(consts, cfg, state, scene, caches=None, axis_name=None, interact
 
 def _directions(consts, cfg, state, planes):
     """Per-robot reduced KKT solves on the stacked [U, ...] blocks: one PSD
-    repair (K3) over all U*P pieces, one fused factor and solve (K3 + K4 in
-    one launch) over the U systems."""
+    repair (`gradients.apply_psd_repair`) over all U*P pieces, one fused
+    factor and solve (K3 + K4 in one launch) over the U systems."""
     g, h = gr.piece_grads_and_hessians(
         consts, cfg, state.spline, state.piece_time, planes,
         state.p_slack, state.t_slack, state.p_lambda, state.t_lambda, repair=False,

@@ -1,7 +1,7 @@
 """Edge-case inputs and a float64 oracle for checking K1 (`smallest_k`), K2
-(`gjk_exact`), K3/K4 (`mod_chol`, `chol_solve`, `factor_solve`) and K5
-(`gjk_diffset`, `gjk_pairs`) where their decisions and their routes are
-most fragile.
+(`gjk_exact`), K3/K4 (`mod_chol`, `chol_solve`, `factor_solve`), K5
+(`gjk_diffset`, `gjk_pairs`) and K6 (`eigvalsh`) where their decisions and
+their routes are most fragile.
 
 ``chip_smoke.py`` holds the kernels to their plain versions on these inputs
 on the card; ``tests/test_torch_kernels.py`` pins the plain versions to the
@@ -171,6 +171,48 @@ def chol_edge_blocks(rng):
     return out
 
 
+EIG_EDGE_SIZES = (1, 2, 18, 19, 20, 32)
+
+
+def eig_edge_blocks(rng):
+    """(name, h) for K6 (`cuda_eig.eigvalsh`), float64 numpy, h [batch, m, m]
+    symmetric: random blocks at every size of `EIG_EDGE_SIZES` (one and two
+    rows, odd and even orders around the solver's 19, a full warp), then
+    19 x 19 blocks that are diagonal, positive definite, negative definite,
+    the identity and rank one plus the identity (eigenvalues repeated 18
+    times), random ones scaled by 1e-6 and by 1e6, one with a NaN and one
+    with an inf entry beside a finite block, and batches of 1 and of 4097."""
+
+    def sym(b, m, scale=1.0):
+        a = rng.normal(size=(b, m, m))
+        return (a + a.transpose(0, 2, 1)) * scale
+
+    def pd(b, m):
+        a = rng.normal(size=(b, m, m))
+        return a @ a.transpose(0, 2, 1) + 0.1 * np.eye(m)
+
+    out = [(f"edge random [8,{m},{m}]", sym(8, m)) for m in EIG_EDGE_SIZES]
+    diag = np.zeros((8, 19, 19))
+    diag[:, np.arange(19), np.arange(19)] = rng.normal(size=(8, 19)) * 3.0
+    v = rng.normal(size=(8, 19))
+    nonfinite = sym(3, 19)
+    nonfinite[1, 4, 7] = nonfinite[1, 7, 4] = np.nan
+    nonfinite[2, 0, 0] = np.inf
+    out += [
+        ("edge diagonal [8,19,19]", diag),
+        ("edge positive definite [8,19,19]", pd(8, 19)),
+        ("edge negative definite [8,19,19]", -pd(8, 19)),
+        ("edge identity [4,19,19]", np.broadcast_to(np.eye(19), (4, 19, 19)).copy()),
+        ("edge rank one plus identity [8,19,19]", np.einsum("bi,bj->bij", v, v) + np.eye(19)),
+        ("edge x 1e-6 [8,19,19]", sym(8, 19, 1e-6)),
+        ("edge x 1e6 [8,19,19]", sym(8, 19, 1e6)),
+        ("edge NaN and inf [3,19,19]", nonfinite),
+        ("edge batch of 1 [1,19,19]", sym(1, 19)),
+        ("edge batch of 4097 [4097,19,19]", sym(4097, 19)),
+    ]
+    return out
+
+
 def chol_edge_rhs(rng, h):
     """Right-hand sides for blocks h [batch, m, m] in the four layouts the
     solve takes: [batch, m], [batch, m, 1], [batch, m, 2], [batch, m, 5]."""
@@ -228,4 +270,18 @@ OPTIMAL_PLANE_JAX_ROWS = {
                       ccd_len=16.001589760663016, min_clearance=0.8060133208084507),
     "u64 coupled": dict(iters=22, converged=True, ccd_time=924.6096998077479,
                         ccd_len=1610.7727116115466, min_clearance=0.1422943607472134),
+}
+
+
+# The JAX package's CPU float64 solves with ``psd_method="ladder"`` that
+# chip_smoke.py holds the card's to (phase 8: iterations within its
+# ITER_SLACK, ccd within 2%), in the configurations of
+# OPTIMAL_PLANE_JAX_ROWS with ``optimal_plane=False``.  The command that
+# made them, and that checks them (~3 min on the CPU):
+#     python -m pytest tests/test_torch_psd.py -m slow -k jax_rows
+PSD_JAX_ROWS = {
+    "single p4 ladder": dict(iters=26, converged=True, ccd_time=9.426693056739843,
+                             ccd_len=16.001670007462607, min_clearance=0.8059663502201705),
+    "u64 coupled ladder": dict(iters=22, converged=True, ccd_time=924.5679653000124,
+                               ccd_len=1610.7224059124585, min_clearance=0.14277637998433032),
 }
