@@ -61,8 +61,12 @@ Phases, each reported on its own lines with the seconds it took:
    (an empty kernel plus m or 2m dependent steps, measured by a one-warp
    probe); what the P = 16 KKT (ns = 141) pays per call; last K6 at the
    solver's call shapes beside float32 `torch.linalg.eigvalsh` (busy ms:
-   it cannot be captured) and K3's plain mode at the ladder's trial
-   shapes beside `torch.linalg.cholesky_ex`.  ``ms`` is per call
+   it cannot be captured) and its latency floor (an empty kernel plus the
+   rounds of the slowest block, counted by `testing.eig_kernel_model`,
+   times one round of its probe), one launch alone and busy inside the
+   graph beside the graph's device ms, and K3's plain mode at the ladder's
+   trial shapes beside `torch.linalg.cholesky_ex`; the fused kernel with
+   ``gmw=False`` beside `torch.linalg.solve`.  ``ms`` is per call
    between CUDA events (the host's cost of issuing a call included),
    ``device_ms`` from 50 launches in one CUDA graph;
 6. the fused drivers (`solve_fused` on the bridge at P=4 and P=16,
@@ -111,11 +115,11 @@ JAX and nothing of the JAX package.
 
     python3 chip_smoke.py --time-shapes DIR [--out FILE]
 
-runs only phase 5's K1/K2/K5 and K3/K4 shape timings of the checkout DIR's
-port on this checkout's inputs (a K5 that takes m <= 64 only reads
-"refused" at the larger shapes), with a digest of each Cholesky output (to
-compare two commits on one card, in time and bit for bit: parent, change,
-change, parent in one call).
+runs only phase 5's K1/K2/K5, K3/K4 and K6 shape timings of the checkout
+DIR's port on this checkout's inputs (a K5 that takes m <= 64 only reads
+"refused" at the larger shapes), with a digest of each Cholesky and
+eigenvalue output (to compare two commits on one card, in time and bit for
+bit: parent, change, change, parent in one call).
 """
 
 from __future__ import annotations
@@ -1150,7 +1154,7 @@ def check_eig(device, log, calls):
     t = _f32(device)
     cases = [(name, args[0]) for name, args, _ in calls["eigvalsh"]] + [
         (name, t(h)) for name, h in eig_edge_blocks(np.random.default_rng(EDGE_SEED + 8))]
-    err = 0.0
+    err = worst_all = 0.0
     for name, h in cases:
         m = h.shape[-1]
         w = cuda_eig.eigvalsh(h)
@@ -1171,9 +1175,12 @@ def check_eig(device, log, calls):
         lib_dist = float(((lib - ref).abs().amax(-1) / scale).max())
         from_lib = float(((got - lib).abs().amax(-1) / scale).max())
         err = max(err, float((got - ref).abs().max()))
+        worst_all = max(worst_all, worst)
         log(f"  K6 eigvalsh {name}: max |w - w64| / |H|_F {worst:.2e} (bound {EIG_TOL:g}); float32 "
             f"torch.linalg.eigvalsh on the card {lib_dist:.2e}, K6 from it {from_lib:.2e}; "
             f"{int((~finite).sum())} non-finite blocks, all NaN")
+    log(f"  K6 eigvalsh: worst |w - w64| / |H|_F over every case {worst_all:.2e} (the first "
+        "version's, one warp a block: 3.6e-7)")
     return err
 
 
@@ -2530,13 +2537,9 @@ def time_ms(fn, reps=50):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps=50):
-    """Mean ms per call with the host out of the way: ``reps`` calls
-    captured in one CUDA graph, replayed between CUDA events (best of three
-    replays, after a warm-up on a side stream).  Unlike `time_ms` it leaves
-    out the host's cost of issuing each call, which at these sizes is longer
-    than the kernels themselves; it keeps the card's gap between two
-    kernels of a graph."""
+def captured(fn, reps=50):
+    """``reps`` calls of ``fn`` captured in one CUDA graph (after a warm-up
+    on a side stream), replayed once."""
     import torch
 
     side = torch.cuda.Stream()
@@ -2549,6 +2552,19 @@ def device_ms(fn, reps=50):
         for _ in range(reps):
             fn()
     graph.replay()
+    return graph
+
+
+def device_ms(fn, reps=50):
+    """Mean ms per call with the host out of the way: ``reps`` calls
+    captured in one CUDA graph (`captured`), replayed between CUDA events
+    (best of three replays).  Unlike `time_ms` it leaves out the host's
+    cost of issuing each call, which at these sizes is longer than the
+    kernels themselves; it keeps the card's gap between two kernels of a
+    graph."""
+    import torch
+
+    graph = captured(fn, reps)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     best = float("inf")
     for _ in range(3):
@@ -2770,8 +2786,9 @@ def chol_shape_timings(inputs, floor=None, library=True):
     `chol_callsite_inputs`: ms per call (`time_ms`, best of two), device ms
     (`device_ms`), busy ms (the kernel's own time under torch.profiler,
     `device_busy_share`), the library call's ms per call beside K3
-    (`torch.linalg.cholesky_ex`) and K4 (`torch.cholesky_solve`; MAGMA, not
-    capturable), the bound, the latency floor (`latency_floor`) and a digest
+    (`torch.linalg.cholesky_ex`), K4 (`torch.cholesky_solve`; MAGMA, not
+    capturable) and the fused kernel with ``gmw=False`` (`torch.linalg.solve`,
+    also busy: it syncs), the bound, the latency floor (`latency_floor`) and a digest
     of the outputs, by which two checkouts' kernels are compared bit for
     bit.  Only `mod_chol(h)`, `chol_solve(l, b)` and `factor_solve(h, b[,
     gmw=False])` are called, so ``--time-shapes`` runs it on another
@@ -2782,7 +2799,7 @@ def chol_shape_timings(inputs, floor=None, library=True):
     def dims(t):
         return "[" + ",".join(map(str, t.shape)) + "]"
 
-    def row(kernel, case, m, kern, lib, nbytes, flops, steps3, steps4, out):
+    def row(kernel, case, m, kern, lib, nbytes, flops, steps3, steps4, out, lib_busy=False):
         bound, by = bound_ms(nbytes, flops)
         r = dict(kernel=kernel, case=case, m=m, ms=min(time_ms(kern), time_ms(kern)),
                  device_ms=device_ms(kern), library_ms=None, bound_ms=bound, bound_by=by,
@@ -2791,6 +2808,8 @@ def chol_shape_timings(inputs, floor=None, library=True):
             r["busy_ms"] = device_busy_share(kern, 20)[0] / 20
             if lib is not None:
                 r["library_ms"] = min(time_ms(lib), time_ms(lib))
+            if lib_busy:
+                r["library_busy_ms"] = device_busy_share(lib, 20)[0] / 20
         if floor is not None:
             r["floor_ms"] = (floor["empty_ms"] + steps3 * floor["k3_step_ms"]
                              + steps4 * floor["k4_step_ms"])
@@ -2803,11 +2822,14 @@ def chol_shape_timings(inputs, floor=None, library=True):
         flops3 = n * (2 * m ** 3 / 3 + 2 * m ** 2)
         if gmw and not gmw[0]:
             k = 1 if b.ndim == h.ndim - 1 else b.shape[-1]
+            # x of a PD block (the "eigh" slack step takes x alone, want_l=False):
+            # one PyTorch call computes it, torch.linalg.solve, which syncs
             rows.append(row("factor_solve", f"{dims(h)} b={dims(b)} gmw=False", m,
-                            lambda h=h, b=b: cuda_chol.factor_solve(h, b, gmw=False), None,
+                            lambda h=h, b=b: cuda_chol.factor_solve(h, b, gmw=False),
+                            lambda h=h, b=b: torch.linalg.solve(h, b),
                             2 * h.numel() * 4 + n * m * 4 + 2 * b.numel() * 4,
                             flops3 + n * k * 2 * m ** 2, m, 2 * m,
-                            cuda_chol.factor_solve(h, b, gmw=False)))
+                            cuda_chol.factor_solve(h, b, gmw=False), lib_busy=True))
             continue
         l, e = cuda_chol.mod_chol(h)
         if id(h) not in factored:
@@ -2935,35 +2957,142 @@ def kernel_timings(device, pair_diffs, rows):
     return out
 
 
-def psd_timings(device):
-    """K6 at each solver call shape of `psd_call_inputs` and K3's plain mode
-    at each of the ladder's trial shapes.  ms: per call between CUDA events
-    (kernel, plain, plain, kernel, each one's best); device ms: 50 launches
-    in one CUDA graph; busy ms: the kernels' own time per call under
-    torch.profiler.  Beside K6, float32 `torch.linalg.eigvalsh`, its plain
-    version and the one library call, per call and busy (it waits on the
-    host for its error check, so no graph holds it); beside K3,
-    `torch.linalg.cholesky_ex`.  Bound: K6 max(bytes / 3.35 TB/s, (4/3) m^3
-    N / 67 TFLOP/s), the bytes h read and w written once; K3 as in
-    `kernel_timings`, L and e written."""
+def eig_floor(device):
+    """Device ms (`device_ms`) of an empty kernel and of one round of K6's
+    design, from its probe (`cuda_eig.latency_probe`: one CUDA block running
+    rounds shaped like K6's and nothing else) at 0 and at 4096 rounds.  A
+    call whose blocks run side by side, the slowest taking R rounds, cannot
+    take less than empty + R rounds."""
     import torch
-    from trajopt_tpu_torch.ops import cuda_chol, cuda_eig
+    from trajopt_tpu_torch.ops import cuda_eig
 
-    calls = psd_call_inputs(device)
+    out = torch.zeros(64, dtype=torch.float32, device=device)
+    steps = 4096
+    empty = device_ms(lambda: cuda_eig.latency_probe(out, 0))
+    long = device_ms(lambda: cuda_eig.latency_probe(out, steps))
+    return {"empty_ms": empty, "round_ms": (long - empty) / steps}
+
+
+def isolated_ms(fn, reps=20):
+    """(least, median) ms of one call of ``fn`` between CUDA events, each
+    queued behind a sleep on the card so that the host's cost of issuing it
+    is hidden, the card otherwise idle."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(200_000)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    ms = sorted(s.elapsed_time(e) for s, e in pairs)
+    return ms[0], ms[len(ms) // 2]
+
+
+def kernel_records(step, reps, name):
+    """(device ms per call, records) of the kernels whose name holds ``name``
+    under torch.profiler over ``reps`` calls of ``step()``: the records are
+    how many launches the profiler returned (fewer than ``reps`` launches
+    means it lost some, and the ms per call reads low with them)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    us, records = 0.0, 0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and name in evt.key:
+            t = getattr(evt, "self_device_time_total", None)
+            us += evt.self_cuda_time_total if t is None else t
+            records += evt.count
+    return us / 1e3 / reps, records
+
+
+def graph_busy_ms(fn, reps=50):
+    """The kernels' own device ms per call of ``fn`` under torch.profiler
+    over one replay of the graph of `device_ms` (`captured`), beside
+    `kernel_records`' eager calls."""
+    return device_busy_share(captured(fn, reps).replay, 1)[0] / reps
+
+
+def eig_shape_timings(inputs, library=True, floor=None):
+    """K6 (`cuda_eig.eigvalsh`) at each (name, h) of ``inputs``: ms per call
+    (`time_ms`; kernel, plain, plain, kernel, each one's best), device ms
+    from 50 launches in one CUDA graph (`device_ms`), the least and median
+    ms of one launch alone (`isolated_ms`), busy ms under torch.profiler for
+    20 eager calls with the number of launches it recorded
+    (`kernel_records`) and inside the graph (`graph_busy_ms`), the bound, the largest |w - w64| / |H|_F against
+    float64 and a digest of the output (equal digests = bit-equal kernels).
+    With ``library``: float32 `torch.linalg.eigvalsh`, the plain version and
+    the one library call, per call and busy (it waits on the host for its
+    error check, so no graph holds it).  With ``floor`` (`eig_floor`): the
+    rounds K6 runs on these blocks (`testing.eig_kernel_model`, the largest
+    and the mean), the latency floor empty + largest rounds x a round, and
+    whether K6 gives the model's bits on every block.  Bound:
+    max(bytes / 3.35 TB/s, (4/3) m^3 N / 67 TFLOP/s), the bytes h read and
+    w written once.  Only `cuda_eig.eigvalsh` is called, so ``--time-shapes``
+    runs it on another checkout's port."""
+    import torch
+    from trajopt_tpu_torch.ops import cuda_eig
+
     rows = []
-    for name, (h,), _ in calls["eigvalsh"]:
+    for name, h in inputs:
         m = h.shape[-1]
         n = h.numel() // (m * m)
         kern = lambda h=h: cuda_eig.eigvalsh(h)
         plain = lambda h=h: cuda_eig.eigvalsh_plain(h)
-        t = [time_ms(kern), time_ms(plain), time_ms(plain), time_ms(kern)]
+        t = [time_ms(kern), time_ms(plain), time_ms(plain), time_ms(kern)] if library else \
+            [time_ms(kern), None, None, time_ms(kern)]
         bound, by = bound_ms(h.numel() * 4 + n * m * 4, n * 4 * m ** 3 / 3)
-        rows.append(dict(kernel="eigvalsh", case=name, shape=_dims((h,)), m=m, n=n,
-                         ms=min(t[0], t[3]), device_ms=device_ms(kern),
-                         busy_ms=device_busy_share(kern, 20)[0] / 20,
-                         plain_ms=min(t[1], t[2]), library_ms=min(t[1], t[2]),
-                         library_busy_ms=device_busy_share(plain, 20)[0] / 20,
-                         library_device_ms=None, bound_ms=bound, bound_by=by))
+        alone, alone_median = isolated_ms(kern)
+        busy, records = kernel_records(kern, 20, "eigvalsh_kernel")
+        w = kern()
+        hd = h.reshape(-1, m, m).double().cpu()
+        err = float(((w.reshape(-1, m).double().cpu() - torch.linalg.eigvalsh(hd)).abs().amax(-1)
+                     / torch.linalg.matrix_norm(hd).clamp(min=1e-30)).max())
+        row = dict(kernel="eigvalsh", case=name, shape=_dims((h,)), m=m, n=n,
+                   ms=min(t[0], t[3]), device_ms=device_ms(kern), isolated_ms=alone,
+                   isolated_median_ms=alone_median, busy_ms=busy, busy_records=records,
+                   graph_busy_ms=graph_busy_ms(kern), bound_ms=bound, bound_by=by,
+                   err_over_fro=err, digest=_digest(w))
+        if library:
+            row.update(plain_ms=min(t[1], t[2]), library_ms=min(t[1], t[2]),
+                       library_busy_ms=device_busy_share(plain, 20)[0] / 20,
+                       library_device_ms=None)
+        if floor is not None:
+            from trajopt_tpu_torch.testing import eig_kernel_model, eig_padded
+
+            model_w, sweeps = eig_kernel_model(h)
+            rounds = sweeps.reshape(-1) * (eig_padded(m) - 1)
+            row.update(rounds_max=int(rounds.max()), rounds_mean=float(rounds.double().mean()),
+                       floor_ms=floor["empty_ms"] + int(rounds.max()) * floor["round_ms"],
+                       model_bit_equal=bool(((model_w == w) | (model_w.isnan() & w.isnan())).all()))
+        rows.append(row)
+    return rows
+
+
+def psd_timings(device):
+    """K6 at each solver call shape of `psd_call_inputs` (`eig_shape_timings`,
+    with its latency floor, `eig_floor`) and K3's plain mode at each of the
+    ladder's trial shapes; returns (rows, K6's floor).  ms: per call between CUDA events (kernel, library,
+    library, kernel, each one's best); device ms: 50 launches in one CUDA
+    graph; busy ms: the kernels' own time per call under torch.profiler.
+    Beside K3, `torch.linalg.cholesky_ex`; bound as in `kernel_timings`,
+    L and e written."""
+    import torch
+    from trajopt_tpu_torch.ops import cuda_chol
+
+    calls = psd_call_inputs(device)
+    floor = eig_floor(device)
+    rows = eig_shape_timings([(name, args[0]) for name, args, _ in calls["eigvalsh"]], floor=floor)
     for name, h in ladder_trials(calls):
         m = h.shape[-1]
         n = h.numel() // (m * m)
@@ -2977,14 +3106,16 @@ def psd_timings(device):
                          library_ms=min(t[1], t[2]),
                          library_busy_ms=device_busy_share(lib, 20)[0] / 20,
                          bound_ms=bound, bound_by=by))
-    return rows
+    return rows, floor
 
 
 def time_other_port(port, out_path):
-    """``--time-shapes``: `shape_timings` (K1, K2 and K5) and `chol_shape_timings` (with
-    the digests of K3's and K4's outputs) of the port in checkout ``port``
-    on this checkout's inputs, written as one JSON object to ``out_path``
-    (stdout if None), after `check_gjk_paths` on its K2 (logged to stderr).
+    """``--time-shapes``: `shape_timings` (K1, K2 and K5), `chol_shape_timings` (with
+    the digests of K3's and K4's outputs) and `eig_shape_timings` (K6 at the
+    solver's call shapes of `psd_call_inputs`, with its error against
+    float64 and its digest) of the port in checkout ``port`` on this
+    checkout's inputs, written as one JSON object to ``out_path`` (stdout if
+    None), after `check_gjk_paths` on its K2 (logged to stderr).
     The inputs are made with this checkout's package, which is then
     unloaded so that ``port``'s is imported in its place.  To compare two
     commits on one card, run parent, change, change, parent in one call."""
@@ -2997,6 +3128,7 @@ def time_other_port(port, out_path):
     topk, gjk = topk_cases(device, rng), gjk_cases(device, rng, pair_diffs)
     fw = fw_cases(device, rng, pair_diffs)
     chol = chol_callsite_inputs(device)
+    eig = [(name, args[0]) for name, args, _ in psd_call_inputs(device)["eigvalsh"]]
     for mod in [m for m in sys.modules if m.split(".")[0] == "trajopt_tpu_torch"]:
         del sys.modules[mod]
     sys.path.insert(0, os.path.abspath(port))
@@ -3009,7 +3141,8 @@ def time_other_port(port, out_path):
                             u.abs().amax(dim=(1, 2)), lambda line: print(line, file=sys.stderr, flush=True))
     text = json.dumps({"package": os.path.dirname(trajopt_tpu_torch.__file__),
                        "card": nvidia_smi_line(),
-                       "rows": shape_timings(topk, gjk, fw) + chol_shape_timings(chol, library=False)})
+                       "rows": shape_timings(topk, gjk, fw) + chol_shape_timings(chol, library=False)
+                       + eig_shape_timings(eig, library=False)})
     if out_path is None:
         print(text)
     else:
@@ -3036,8 +3169,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description="On-card smoke test of trajopt_tpu_torch.")
     ap.add_argument("--time-shapes", metavar="DIR",
-                    help="only time the K1, K2, K5, K3 and K4 of the checkout DIR at every timed "
-                         "shape (this checkout's inputs) and print them as JSON")
+                    help="only time the K1, K2, K5, K3, K4 and K6 of the checkout DIR at every "
+                         "timed shape (this checkout's inputs) and print them as JSON")
     ap.add_argument("--out", metavar="FILE", help="with --time-shapes: write the JSON to FILE")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -3181,7 +3314,8 @@ def main() -> int:
         "under torch.profiler; library ms per call; bound; latency floor = empty + m K3 steps + 2m K4 steps):")
     chol_rows = chol_shape_timings(chol_callsite_inputs(device), floor)
     for r in chol_rows:
-        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}" + (
+            f" (busy {r['library_busy_ms']:.4f}, torch.linalg.solve)" if "library_busy_ms" in r else "")
         log(f"    {r['kernel']} {r['case']}, route {cuda_chol.route(r['m'])}: kernel {r['ms']:.4f} / "
             f"{r['device_ms']:.4f} (busy {r['busy_ms']:.4f}), library {lib}, bound {r['bound_ms']:.5f} ({r['bound_by']}), "
             f"floor {r['floor_ms']:.5f} ({r['device_ms'] / r['floor_ms']:.2f}x), digest {r['digest']}")
@@ -3191,12 +3325,23 @@ def main() -> int:
     log("  K6 at the solver's call shapes and K3's plain mode at the shift ladder's (ms per call "
         "/ device ms, busy ms under torch.profiler; beside K6 float32 torch.linalg.eigvalsh, its "
         "plain version and the library call, beside K3 torch.linalg.cholesky_ex: ms per call, "
-        "busy ms; bound):")
-    psd_rows = psd_timings(device)
+        "busy ms; bound; for K6 one launch alone (least / median), busy inside the graph, the "
+        "rounds of its slowest block by testing.eig_kernel_model and the latency floor = empty + "
+        "those rounds x one round of its probe):")
+    psd_rows, floor_eig = psd_timings(device)
     for r in psd_rows:
+        eig = "" if "floor_ms" not in r else (
+            f"; {r['busy_records']} of 20 launches recorded; alone {r['isolated_ms']:.4f} / "
+            f"{r['isolated_median_ms']:.4f}, graph busy "
+            f"{r['graph_busy_ms']:.4f}; rounds {r['rounds_max']} (mean {r['rounds_mean']:.1f}), "
+            f"floor {r['floor_ms']:.5f} ({r['device_ms'] / r['floor_ms']:.2f}x); max |w - w64| / "
+            f"|H|_F {r['err_over_fro']:.2e}, the model's bits {r['model_bit_equal']}, digest "
+            f"{r['digest']}")
         log(f"    {r['kernel']} {r['case']}: kernel {r['ms']:.4f} / {r['device_ms']:.4f} (busy "
             f"{r['busy_ms']:.4f}), library {r['library_ms']:.4f} (busy {r['library_busy_ms']:.4f}), "
-            f"bound {r['bound_ms']:.5f} ({r['bound_by']})")
+            f"bound {r['bound_ms']:.5f} ({r['bound_by']}){eig}")
+    log(f"  K6 probe (device ms): empty kernel {floor_eig['empty_ms']:.5f}, one round "
+        f"{floor_eig['round_ms']:.6f}")
     times["eigvalsh"] = next(r for r in psd_rows if r["kernel"] == "eigvalsh"
                              and r["shape"] == EIG_HEADLINE)
     phase_done(5)
@@ -3246,6 +3391,7 @@ def main() -> int:
                                                       if r["kernel"] == "mod_chol gmw=False"]
         if name == "eigvalsh":
             kernels[-1]["by_call_shape"] = [r for r in psd_rows if r["kernel"] == name]
+            kernels[-1]["latency_floor"] = floor_eig
         if name == "gjk_fw":
             kernels[-1]["by_call_shape"] = [r for r in rows if r["kernel"] == name]
             kernels[-1]["group_sweep_device_ms"] = sweep

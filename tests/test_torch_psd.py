@@ -1,9 +1,10 @@
 """The PSD repairs of the torch port's Newton blocks, on the CPU in float64:
 the Cholesky shift ladder (`gradients.psd_repair_ladder`) and K6's plain
 version (`cuda_eig.eigvalsh`) against the JAX package's functions on the
-same numpy inputs, every fused driver with ``psd_method="eigh"`` and
-``"ladder"`` bit-equal to the host-stepped solve, an unknown method refused
-where it is read, and (``slow``) the JAX CPU float64 rows that
+same numpy inputs, K6's algorithm (`testing.eig_kernel_model`, float32)
+against float64 eigenvalues, every fused driver with ``psd_method="eigh"``
+and ``"ladder"`` bit-equal to the host-stepped solve, an unknown method
+refused where it is read, and (``slow``) the JAX CPU float64 rows that
 chip_smoke.py's phase 8 holds the card's ladder solves to.  The ``cuda``
 test holds K6 to float64 on the card."""
 
@@ -13,12 +14,16 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import EIG_TOL
 from tests.test_torch_fused import F64, _assert_equal_trees, fleet_problem, single_problem
 from trajopt_tpu.ops import gradients as jgr
 from trajopt_tpu_torch import testing
 from trajopt_tpu_torch import types as tt
+from trajopt_tpu_torch.config import TrajOptConfig
 from trajopt_tpu_torch.ops import cuda_eig
 from trajopt_tpu_torch.ops import gradients as gr
+from trajopt_tpu_torch.ops import splines as sp
+from trajopt_tpu_torch.scenes import generators as gen
 from trajopt_tpu_torch.solver import admm, driver, multi
 
 torch.set_num_threads(1)
@@ -101,8 +106,8 @@ def test_eigvalsh_plain_matches_jax(name, h):
 
 
 def test_eigvalsh_kernel_route_refuses_what_it_cannot_take():
-    """Off the CPU the wrapper goes to K6, which takes m <= 32 (one lane a
-    row): m = 33 raises ValueError before anything is built, as does a
+    """Off the CPU the wrapper goes to K6, which takes m <= 32 (a thread a
+    pair-block): m = 33 raises ValueError before anything is built, as does a
     block that is not square; float64 raises TypeError."""
     with pytest.raises(ValueError, match="m <= 32"):
         cuda_eig.eigvalsh(torch.empty(2, 33, 33, device="meta"))
@@ -110,6 +115,74 @@ def test_eigvalsh_kernel_route_refuses_what_it_cannot_take():
         cuda_eig.eigvalsh(torch.empty(2, 3, 4, device="meta"))
     with pytest.raises(TypeError, match="float32"):
         cuda_eig.eigvalsh(torch.empty(2, 19, 19, dtype=torch.float64, device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# K6's algorithm (its float32 model) against float64
+# ---------------------------------------------------------------------------
+
+_STEP_BLOCKS = ("bridge p4 spline", "bridge p4 slack", "cross u4 spline", "cross u4 slack")
+
+
+@pytest.fixture(scope="module")
+def step_hessians():
+    """The blocks one ``psd_method="eigh"`` step hands `psd_repair` (the
+    spline Hessians, then the slack ones), from the start of chip_smoke.py's
+    bridge at P=4 (20000 points) and of its 4-robot cross coupled, on the
+    CPU in float64 (~10 s)."""
+    seen = []
+    real = gr.psd_repair
+
+    def spy(h):
+        seen.append(h.clone())
+        return real(h)
+
+    gr.psd_repair = spy
+    try:
+        cfg = TrajOptConfig(ks=1e-8, max_planes=16, max_ccd_candidates=16, psd_method="eigh")
+        cloud, wp = gen.bridge_scene(n_points=20000, seed=0, n_pieces=4)
+        ops = sp.build_spline_ops(4, cfg.res)
+        admm.admm_step(tt.device_consts(ops, **F64), cfg, tt.init_state(ops, wp, 20.0, **F64),
+                       tt.make_scene(cloud, **F64))
+        cfg = TrajOptConfig(res=8, ks=1e-3, max_planes=16, max_self_planes=4,
+                            max_ccd_candidates=16, psd_method="eigh")
+        cloud = gen.cross_scene(n_points=4000, seed=0)
+        ops = sp.build_spline_ops(4, cfg.res)
+        state = multi.init_multi_state(ops, gen.assign_lanes(gen.cross_waypoints(4, 4), cloud),
+                                       20.0, **F64)
+        multi.multi_admm_step(tt.device_consts(ops, **F64), cfg, state,
+                              tt.make_scene(cloud, **F64), coupled=True)
+    finally:
+        gr.psd_repair = real
+    assert len(seen) == len(_STEP_BLOCKS)
+    return {name: h.numpy() for name, h in zip(_STEP_BLOCKS, seen)}
+
+
+@pytest.mark.parametrize("name", [c[0] for c in _EIG_EDGES] + list(_STEP_BLOCKS))
+def test_eig_kernel_model_meets_float64(name, step_hessians):
+    """`testing.eig_kernel_model` (K6's algorithm in float32) on chip_smoke.py's
+    K6 edge blocks and on the blocks of one ``eigh`` step: every eigenvalue
+    within EIG_TOL x |H|_F of float64 `torch.linalg.eigvalsh` of the same
+    float32 block, ascending, NaN throughout for a block with a non-finite
+    entry; prints the sweeps and rounds the blocks take."""
+    h = dict(_EIG_EDGES)[name] if name in dict(_EIG_EDGES) else step_hessians[name]
+    h = torch.tensor(h, dtype=torch.float32)
+    m = h.shape[-1]
+    w, sweeps = testing.eig_kernel_model(h)
+    assert w.shape == h.shape[:-1] and sweeps.shape == h.shape[:-2]
+    flat, wf = h.reshape(-1, m, m), w.reshape(-1, m)
+    finite = torch.isfinite(flat).all(-1).all(-1)
+    assert bool(wf[~finite].isnan().all())
+    hd = flat[finite].double()
+    got = wf[finite].double()
+    worst = float(((got - torch.linalg.eigvalsh(hd)).abs().amax(-1)
+                   / torch.linalg.matrix_norm(hd).clamp(min=1e-30)).max())
+    assert worst <= EIG_TOL
+    assert bool((got.diff(dim=-1) >= 0).all())
+    rounds = sweeps.reshape(-1)[finite] * (testing.eig_padded(m) - 1)
+    print(f"{name}: max |w - w64| / |H|_F {worst:.2e}; sweeps {int(sweeps.min())}-"
+          f"{int(sweeps.max())}, rounds {int(rounds.min())}-{int(rounds.max())} (mean "
+          f"{float(rounds.double().mean()):.1f}) a block")
 
 
 # ---------------------------------------------------------------------------

@@ -58,6 +58,7 @@ _SIGNATURES = {
     "trajopt_factor_solve": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _float, _vp],
     "trajopt_chol_probe": [_vp, _int, _int, _vp],
     "trajopt_eigvalsh": [_vp, _vp, _int, _int, _vp],
+    "trajopt_eig_probe": [_vp, _int, _vp],
 }
 
 

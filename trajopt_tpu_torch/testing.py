@@ -1,12 +1,13 @@
 """Edge-case inputs and a float64 oracle for checking K1 (`smallest_k`), K2
 (`gjk_exact`), K3/K4 (`mod_chol`, `chol_solve`, `factor_solve`), K5
 (`gjk_diffset`, `gjk_pairs`) and K6 (`eigvalsh`) where their decisions and
-their routes are most fragile.
+their routes are most fragile, and a float32 model of K6's algorithm
+(`eig_kernel_model`).
 
 ``chip_smoke.py`` holds the kernels to their plain versions on these inputs
 on the card; ``tests/test_torch_kernels.py`` pins the plain versions to the
-JAX package's functions on the same inputs on the CPU.  numpy only; the
-generators draw from ``rng`` alone, so a seed fixes every input.
+JAX package's functions on the same inputs on the CPU.  The generators are
+numpy and draw from ``rng`` alone, so a seed fixes every input.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import itertools
 
 import numpy as np
+import torch
 
 EDGE_SEED = 7   # the edge cases' own generators start here, so that the other
                 # cases of a check keep their inputs
@@ -211,6 +213,139 @@ def eig_edge_blocks(rng):
         ("edge batch of 4097 [4097,19,19]", sym(4097, 19)),
     ]
     return out
+
+
+EIG_MAX_SWEEPS = 15           # csrc/eig.cu's kMaxSweeps
+EIG_TINY = 2.0 ** -60         # an |a_pq| at or below this (scaled block) is set to 0 unrotated
+_EPS32 = 2.0 ** -23
+
+
+def eig_padded(m: int) -> int:
+    """The order K6 pads an m x m block to: even, and >= 6 past m = 2."""
+    return 2 if m <= 2 else max(6, m + (m & 1))
+
+
+def eig_sweep_pairs(n: int) -> list[list[tuple[int, int]]]:
+    """The n - 1 rounds of a sweep of K6 on n (even) indices, each the n / 2
+    pairs (top, bottom) in pair order: the ring order of Brent and Luk
+    (``next_slot`` in csrc/eig.cu), index 0 fixed in slot 0, every index
+    back in its slot after the sweep."""
+    h = n // 2
+
+    def next_slot(s):
+        if h == 1 or s == 0:
+            return s
+        if s % 2 == 0:
+            return s + 2 if s // 2 < h - 1 else s + 1
+        return s - 2 if s // 2 > 0 else 2
+
+    slot, rounds = list(range(n)), []       # slot -> the index there
+    for _ in range(n - 1):
+        rounds.append([(slot[2 * k], slot[2 * k + 1]) for k in range(h)])
+        moved = [0] * n
+        for s in range(n):
+            moved[next_slot(s)] = slot[s]
+        slot = moved
+    return rounds
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.float32)
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once to float32: the float32 product is exact in
+    float64, so only the sum rounds twice, which moves a result in far
+    fewer than one case in a million."""
+    return _f32(a.double() * b.double() + c.double())
+
+
+def eig_rotation(app, aqq, apq):
+    """(c, s, new a_pp, new a_qq) of K6's rotation zeroing a_pq (csrc/eig.cu
+    ``rotation``), elementwise in float32: d = a_qq - a_pp, e = 2 a_pq,
+    t = sign(d) e / (|d| + sqrt(d^2 + e^2)), c = 1 / sqrt(1 + t^2), s = t c,
+    the closed forms a_pp - t a_pq and a_qq + t a_pq; identity at
+    |a_pq| <= EIG_TINY.  Division and square roots are taken in float64 and
+    rounded once, the correctly rounded float32 result the card gives
+    (torch's own float32 square root on the CPU can miss it by one unit in
+    the last place); 1 / sqrt rounds twice that way, which moves a result
+    in far fewer than one case in a million."""
+    d = aqq - app
+    e = 2.0 * apq
+    h = _f32(torch.sqrt(_fma(d, d, e * e).double()))
+    t = _f32(torch.where(d >= 0, e, -e).double() / (d.abs() + h).double())
+    c = _f32(1.0 / torch.sqrt(_fma(t, t, torch.ones_like(t)).double()))
+    tiny = apq.abs() <= EIG_TINY
+    return (torch.where(tiny, 1.0, c), torch.where(tiny, 0.0, t * c),
+            torch.where(tiny, app, _fma(-t, apq, app)), torch.where(tiny, aqq, _fma(t, apq, aqq)))
+
+
+def eig_kernel_model(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6's algorithm (``csrc/eig.cu``) in float32 torch, round by round, on
+    blocks h [..., m, m] (the lower triangle is read), on h's device:
+    the power-of-two scaling, the padding (`eig_padded`), the rounds in
+    K6's order (`eig_sweep_pairs`), each round's rotations formed from the
+    last round's result (`eig_rotation`), rows by rotation k then columns by
+    rotation l for each pair-block k < l with K6's multiply-adds (the
+    blocks k > l their mirror), the closed-form diagonal and a zero a_pq,
+    the stop at off^2 <= eps^2 |A|_F^2 before the first sweep and after
+    each (at most `EIG_MAX_SWEEPS`), the stable sort, NaN throughout for a
+    block with a non-finite entry.  Only the sums behind the stop are
+    taken in another order than K6's.  Nothing in the port calls it: the
+    tests hold it to float64, and chip_smoke.py counts K6's rounds with it.
+    Returns (w [..., m] ascending, sweeps [...]); a block runs
+    sweeps * (eig_padded(m) - 1) rounds."""
+    lead, m = h.shape[:-2], h.shape[-1]
+    a = _f32(h.reshape(-1, m, m))
+    b, n, dev = a.shape[0], eig_padded(m), a.device
+    finite = torch.isfinite(a).all(-1).all(-1)
+    a = torch.where(finite[:, None, None], a, 0.0)
+    A = torch.zeros(b, n, n, dtype=torch.float32, device=dev)
+    A[:, :m, :m] = torch.tril(a) + torch.tril(a, -1).transpose(-1, -2)
+    amax = A.abs().amax((-1, -2))
+    expo = torch.where(amax > 0, torch.frexp(amax).exponent, 0).clamp(-100, 100)
+    A = A * torch.ldexp(torch.ones_like(amax), -expo)[:, None, None]
+    iu = torch.triu_indices(n, n, 1, device=dev)
+
+    def off2(mat):
+        u = mat[:, iu[0], iu[1]]
+        return 2.0 * (u * u).sum(-1)
+
+    diag = torch.diagonal(A, dim1=-2, dim2=-1)
+    tol2 = _EPS32 * _EPS32 * ((diag * diag).sum(-1) + off2(A))
+    active = finite & (off2(A) > tol2)
+    sweeps = torch.zeros(b, dtype=torch.int64, device=dev)
+    k = torch.arange(n // 2, device=dev)
+    upper = k[:, None] < k[None, :]
+    rounds = [torch.tensor(pairs, device=dev).T for pairs in eig_sweep_pairs(n)]
+    for _ in range(EIG_MAX_SWEEPS):
+        if not bool(active.any()):
+            break
+        sweeps += active.long()
+        for p, q in rounds:
+            c, s, dp, dq = eig_rotation(A[:, p, p], A[:, q, q], A[:, p, q])
+            pp, pq = (p[:, None], p[None, :]), (p[:, None], q[None, :])
+            qp, qq = (q[:, None], p[None, :]), (q[:, None], q[None, :])
+            x00, x01, x10, x11 = A[:, pp[0], pp[1]], A[:, pq[0], pq[1]], A[:, qp[0], qp[1]], \
+                A[:, qq[0], qq[1]]
+            ck, sk, cl, sl = c[:, :, None], s[:, :, None], c[:, None, :], s[:, None, :]
+            y00, y01 = _fma(ck, x00, -sk * x10), _fma(ck, x01, -sk * x11)
+            y10, y11 = _fma(sk, x00, ck * x10), _fma(sk, x01, ck * x11)
+            z00, z01 = _fma(cl, y00, -sl * y01), _fma(sl, y00, cl * y01)
+            z10, z11 = _fma(cl, y10, -sl * y11), _fma(sl, y10, cl * y11)
+            t = lambda z: z.transpose(-1, -2)
+            new = torch.empty_like(A)
+            new[:, pp[0], pp[1]] = torch.where(upper, z00, t(z00))
+            new[:, pq[0], pq[1]] = torch.where(upper, z01, t(z10))
+            new[:, qp[0], qp[1]] = torch.where(upper, z10, t(z01))
+            new[:, qq[0], qq[1]] = torch.where(upper, z11, t(z11))
+            new[:, p, p], new[:, q, q] = dp, dq
+            new[:, p, q] = new[:, q, p] = 0.0
+            A = torch.where(active[:, None, None], new, A)
+        active = active & (off2(A) > tol2)
+    w = torch.sort(torch.diagonal(A, dim1=-2, dim2=-1)[:, :m], dim=-1, stable=True).values
+    w = torch.where(finite[:, None], torch.ldexp(w, _f32(expo[:, None])), float("nan"))
+    return w.reshape(*lead, m), sweeps.reshape(lead)
 
 
 def chol_edge_rhs(rng, h):
