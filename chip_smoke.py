@@ -106,7 +106,17 @@ Phases, each reported on its own lines with the seconds it took:
    and idle share);
    `solve_fused_batch` at B = 16 with each method (scenarios against
    their own `solve_fused`), and the cross's ladder solve sharded at
-   world size 1, bit-equal to the unsharded one.
+   world size 1, bit-equal to the unsharded one;
+9. one congested step against float64 (`tools/cuda_check.py`, with
+   ``psd_method`` "gmw" and "eigh"): the 8-robot coupled cross of 2000
+   points warmed on the card to its first step with live planes and a
+   coupled CCD limit below 1, then the card's float32 Newton direction, dt
+   and gnorm within 5e-3 of the CPU float64 oracle's on the same warm
+   state, live plane counts within 2, the card's CCD limit below 1, the
+   card's post step certified in float64 (obstacle and pair clearance >=
+   offset - 1e-5, a descent of the augmented-Lagrangian energy), and K1,
+   K2 and the fused K3 + K4 launch (and K6 under "eigh") launched in the
+   probe step, none in the oracle.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failed check raises,
@@ -2518,6 +2528,58 @@ def psd_phase(device, launches, by_shape, log):
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: one congested step against float64 (tools/cuda_check.py)
+# ---------------------------------------------------------------------------
+
+
+def load_cuda_check():
+    """This checkout's tools/cuda_check.py, loaded by its path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("cuda_check",
+                                                  os.path.join(HERE, "tools", "cuda_check.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def step_check_phase(device, log):
+    """Phase 9: `cuda_check.probe` on the card with each of its PSD methods:
+    the 8-robot coupled cross warmed to its first congested step, the
+    card's float32 direction, gnorm, planes and CCD limit against the CPU
+    float64 oracle's, the post step's clearances and energy descent in
+    float64, and the launches of the probe step.  Every entry must be ok
+    (``kernels_active`` too)."""
+    import torch
+
+    cc = load_cuda_check()
+    for method in cc.PSD_METHODS:
+        r = cc.probe(device, torch.float32, psd_method=method,
+                     log=lambda s, m=method: log(f"  {m}: {s}"))
+        e = r["deviations"]
+        log(f"  {method}: {r['device']}; warm iteration {r['warm_iter']}; newton_direction max "
+            f"rel {e['newton_direction']['max_rel']:.3e} (tol {cc.DIRECTION_TOL}); dt "
+            f"{e['time_direction']['card']:.9g} / f64 {e['time_direction']['cpu_f64']:.9g}; gnorm "
+            f"{e['gnorm']['card']:.9g} / f64 {e['gnorm']['cpu_f64']:.9g}; planes "
+            f"{e['n_planes']['card']} / f64 {e['n_planes']['cpu_f64']}; ccd step "
+            f"{e['ccd_refine_active']['card_ccd_step']:.9g} / f64 "
+            f"{e['ccd_refine_active']['cpu_f64_ccd_step']:.9g}")
+        log(f"  {method}: post step clearance obstacle "
+            f"{e['post_step_feasible']['min_obstacle_clearance']:.9g}, pair "
+            f"{e['post_step_feasible']['min_pair_clearance']:.9g} (offset "
+            f"{e['post_step_feasible']['offset']}); energy f64 warm "
+            f"{e['post_step_descent']['e_warm_f64']:.12g}, post "
+            f"{e['post_step_descent']['e_post_f64']:.12g}; launches in the probe step "
+            f"{e['kernels_active']['probe_step']}, in the direction "
+            f"{e['kernels_active']['direction']}, in the oracle {e['kernels_active']['oracle']}; "
+            f"seconds {json.dumps({k: round(v, 3) for k, v in r['seconds'].items()})}")
+        log(f"  {method}: " + json.dumps({k: v["ok"] for k, v in e.items()}))
+        check(not r["failed"] and e["kernels_active"]["ok"] is True,
+              f"phase 9 {method}: {r['failed']} failed: "
+              + json.dumps({k: e[k] for k in r["failed"]}))
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: timing
 # ---------------------------------------------------------------------------
 
@@ -3363,6 +3425,12 @@ def main() -> int:
     log(f"== phase 8: every PSD repair on every driver (float32, on the card; {smi})")
     psd_phase(device, launches, by_shape, log)
     phase_done(8)
+
+    # -- phase 9 ------------------------------------------------------------
+    log(f"== phase 9: a congested 8-robot coupled step against the CPU float64 oracle "
+        f"(tools/cuda_check.py; float32, on the card; {smi})")
+    step_check_phase(device, log)
+    phase_done(9)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     path = {name: f"u{FLEET} coupled" for name in KERNELS}

@@ -145,14 +145,18 @@ def _imported_modules(path: pathlib.Path):
 
 
 def test_port_imports_nothing_of_the_jax_package():
-    """No module of trajopt_tpu_torch and no line of chip_smoke.py imports
-    jax or trajopt_tpu (the card's machine has neither)."""
-    files = sorted((REPO / "trajopt_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    """No module of trajopt_tpu_torch and no line of chip_smoke.py or
+    tools/cuda_check.py imports jax, trajopt_tpu, __graft_entry__ or
+    tools/tpu_check.py (the card's machine has no JAX)."""
+    files = sorted((REPO / "trajopt_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tools" / "cuda_check.py"]
     assert len(files) > 20
     assert REPO / "trajopt_tpu_torch" / "runtime" / "checkpoint.py" in files
+    assert REPO / "tools" / "cuda_check.py" in files and all(f.is_file() for f in files)
     bad = [
         f"{f.relative_to(REPO)}: {name}"
         for f in files for name in _imported_modules(f)
-        if name.split(".")[0] in ("jax", "jaxlib", "trajopt_tpu")
+        if name.split(".")[0] in ("jax", "jaxlib", "trajopt_tpu", "__graft_entry__")
+        or name.split(".")[-1] == "tpu_check"
     ]
     assert not bad, bad
