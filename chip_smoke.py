@@ -7,8 +7,16 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
 Phases, each reported on its own lines with the seconds it took:
 1. card and build: the card's name and power limit (nvidia-smi), torch and
-   CUDA versions, and the time to build the CUDA kernels from ``csrc/``;
-2. every kernel (K1-K5 and the fused K3 + K4 launch) against its plain
+   CUDA versions, the time to build the CUDA kernels from ``csrc/``, and
+   the CUDA runtime and driver versions that decide the form of an IF/ELSE
+   node (one node with an ELSE body from 12.8, else two IF nodes);
+2. first the conditional graph nodes and their ``set_condition`` kernel
+   against the host branch (`cond_probe`: two IF nodes, an IF/ELSE, a
+   WHILE to its bound, one stopped by its predicate and one of 0 trips, a
+   WHILE in a WHILE with an IF in it; each capture launched at several
+   inputs, bit-equal, its ``set_condition`` executions equal to the
+   conditions the nodes' CPU stand-in reads); then
+   every kernel (K1-K5 and the fused K3 + K4 launch) against its plain
    torch version in float32, at the shapes the single-UAV and the 64-robot
    solves give it plus edge cases (for K1, K2 and K5 aimed at each route:
    ties, signed zeros, NaN and +inf, k = 1 and k = n, m = 1 to 80 for K2
@@ -66,18 +74,28 @@ Phases, each reported on its own lines with the seconds it took:
    times one round of its probe), one launch alone and busy inside the
    graph beside the graph's device ms, and K3's plain mode at the ladder's
    trial shapes beside `torch.linalg.cholesky_ex`; the fused kernel with
-   ``gmw=False`` beside `torch.linalg.solve`.  ``ms`` is per call
-   between CUDA events (the host's cost of issuing a call included),
-   ``device_ms`` from 50 launches in one CUDA graph;
+   ``gmw=False`` beside `torch.linalg.solve`; last ``set_condition``
+   (`set_condition_timings`: a chain of 50 ``device_cond`` nodes in one
+   graph, ms a node beside the select form's link, the kernel's own time
+   from profiler records, and its plain version, a host read).  ``ms`` is
+   per call between CUDA events (the host's cost of issuing a call
+   included), ``device_ms`` from 50 launches in one CUDA graph;
 6. the fused drivers (`solve_fused` on the bridge at P=4 and P=16,
    `solve_fused_multi` on the 64-robot cross coupled and decoupled,
    `solve_fused_multi_cached` on the cross coupled with ``optimal_plane``),
-   each solve one CUDA graph replayed: the host-stepped solve's iteration
-   count of phases 3-4, the final state beside it, the C++ gate (the JAX
-   row with ``optimal_plane``), pairwise clearance by K2, host syncs =
-   replays + 2 final reads, kernel nodes per capture, warm-up and capture
-   ms, wall ms per iteration beside the host-stepped solve's, and device
-   busy and idle share over one replay;
+   each solve one CUDA graph launched once (the conditional form: the
+   loop a WHILE node, each branch an IF node), then the same loop in the
+   select form (one step's graph replayed, a flag read each): the
+   host-stepped solve's iteration count of phases 3-4 and a final state
+   bit-equal to it in both forms, the C++ gate (the JAX row with
+   ``optimal_plane``), pairwise clearance by K2, host syncs = 2 final
+   reads (select: + the replays), the IF and WHILE nodes, kernel nodes per
+   capture and their executions in the solve (from the nodes' tallies)
+   beside the host-stepped solve's launches, warm-up and capture ms,
+   replay and whole-call ms per iteration of each form beside the
+   host-stepped solve's, and device busy and idle share over one whole
+   solve of each form, captured again and launched after
+   `torch.cuda.empty_cache` (bit-equal: the graph owns what it reads);
 7. scenario batches and sharding: `solve_fused_batch` at bench_scale.py's
    batches of 16 and 1024 jittered bridge scenarios (2000 points, P=4, 50
    iterations), three of the 16 against their own `solve_fused`, every
@@ -86,9 +104,11 @@ Phases, each reported on its own lines with the seconds it took:
    row); `solve_fused_batch_multi` at bench_scale.py's 4 and 16 fleets of
    the 4-robot cross (coupled, and decoupled at 4), fleets 0 and B-1
    against their own `solve_fused_multi`, every fleet's pair clearance by
-   K2 cross-checked by K5; each with warm-up and capture ms, replay ms per
-   iteration, scenario-iterations per second, busy and idle share over one
-   replay and kernel nodes per capture; then sharding on a single-rank NCCL
+   K2 cross-checked by K5; each with warm-up and capture ms, launch ms per
+   iteration, scenario-iterations per second, kernel nodes per capture and
+   their executions, and the solve captured again and launched after
+   `torch.cuda.empty_cache`, bit-equal (no profiler: `log_batch_run`);
+   then sharding on a single-rank NCCL
    group: the 64-robot cross's sharded step (3 steps, both modes) and
    `solve_fused_multi(axis_name=...)` bit-equal to the unsharded ones,
    the 2-D mesh step, the scenario-sharded solver, and
@@ -101,9 +121,9 @@ Phases, each reported on its own lines with the seconds it took:
    the C++ gate, ``"ladder"`` to the JAX package's CPU float64 row,
    `testing.PSD_JAX_ROWS`, the C++ offsets printed beside it; K6 launched
    in every ``eigh`` solve and K3 not, K3 in every ladder solve and K6
-   not; host syncs = replays + 2, and of one host-stepped iteration from
-   the converged state; replay ms, warm-up and capture, kernel nodes, busy
-   and idle share);
+   not; host syncs = 2 (select: + the replays), and of one host-stepped
+   iteration from the converged state; replay ms, warm-up and capture,
+   kernel nodes and executions, the relaunch after `torch.cuda.empty_cache`);
    `solve_fused_batch` at B = 16 with each method (scenarios against
    their own `solve_fused`), and the cross's ladder solve sharded at
    world size 1, bit-equal to the unsharded one;
@@ -171,9 +191,14 @@ KERNELS = {
                      "trajopt_tpu/ops/pallas_chol.py:43 and :90 (one launch for both)"),
     "eigvalsh": ("trajopt_tpu_torch/csrc/eig.cu",
                  "trajopt_tpu/ops/gradients.py:414 (XLA's eigvalsh; no Pallas site)"),
+    "set_condition": ("trajopt_tpu_torch/csrc/graph_cond.cu",
+                      "trajopt_tpu/solver/driver.py:318 (XLA's lowering of lax.while_loop and "
+                      "lax.cond; no Pallas site)"),
 }
 # the kernels every solve must launch (K5 runs in the clearance cross-check)
 SOLVE_KERNELS = ("smallest_k", "gjk_exact", "mod_chol", "chol_solve", "factor_solve")
+# and every fused solve in the conditional form: its nodes' conditions
+FUSED_KERNELS = SOLVE_KERNELS + ("set_condition",)
 # the phase-2 case whose shape_timings row stands for K1 and K2 in the
 # kernels line (64-robot coupled shapes)
 HEADLINE = {"smallest_k": "fleet coarse [32,4000] k=64",
@@ -1238,6 +1263,180 @@ def check_ladder_trials(device, log, calls):
         check(wrong_plain == 0, f"K3 plain {name}: {wrong_plain} PD verdicts against float64")
 
 
+COND_CASES = ("if", "if_else", "while", "nested")
+
+
+def _counting_nodes():
+    from trajopt_tpu_torch.runtime import graph
+
+    class CountingNodes(graph.EagerNodes):
+        """The nodes' CPU stand-in, counting the conditions it reads
+        (``per_if`` for each IF/ELSE)."""
+
+        def __init__(self, per_if):
+            self.per_if, self.reads = per_if, 0
+
+        def cond(self, pred, then, orelse):
+            self.reads += self.per_if
+            super().cond(pred, then, orelse)
+
+        def loop(self, cond, body):
+            def counted():
+                self.reads += 1
+                return cond()
+
+            super().loop(counted, body)
+
+    return CountingNodes
+
+
+def cond_probe(device, log, cases=COND_CASES):
+    """``set_condition`` and the conditional nodes it drives against their
+    plain version, the host branch (`runtime.graph`'s branch form on the
+    same inputs), in float32 on the card.  Each case is captured once in
+    the conditional form (`graph.capture_fn`) and launched at each of its
+    inputs, which the host writes into the graph's input buffers: "if"
+    two IF nodes of one body each (the form before CUDA 12.8), "if_else"
+    an IF node with an ELSE body, each with the predicate true and false
+    and sides that return an operand, a view of one and new tensors;
+    "while" a WHILE that counts to its 10-round bound, one its predicate
+    stops early and one of 0 trips; "nested" a WHILE in a WHILE with an IF
+    in each inner round (three levels of bodies, as the decoupled solve
+    nests them).  Every output equals the branch form's bit for bit, and
+    each launch's ``set_condition`` executions (its tallies) equal the
+    conditions the branch form read.  Returns the largest abs difference."""
+    import torch
+    from trajopt_tpu_torch.ops import cuda_cond
+    from trajopt_tpu_torch.runtime import graph
+
+    f32 = dict(device=device, dtype=torch.float32)
+    CountingNodes = _counting_nodes()
+    runtime, driver = cuda_cond.versions()
+    log(f"  conditional nodes: CUDA runtime {runtime}, driver {driver}; IF/ELSE nodes "
+        f"{'available' if cuda_cond.if_else_nodes() else 'not available (two IF nodes instead)'}")
+    zero = lambda like: torch.zeros((), dtype=torch.int64, device=like.device)
+
+    def if_fn(p, x, limit):
+        return graph.device_cond(p, lambda a: (a, a[1:], a.sum() * 2.0),
+                                 lambda a: (a * 3.0 - 1.0, a[:3] + limit, a.amax()), x)
+
+    def while_fn(p, x, limit):
+        return graph.fixed_rounds(10, lambda v, n: v.sum() < limit, lambda v, n: (v + 1.0, n + 1),
+                                  x, zero(x))
+
+    def nested_fn(p, x, limit):
+        def rounds(i, v):
+            def inner(j, w):
+                w = graph.device_cond((j % 2) == 0, lambda: w + j.to(w.dtype), lambda: w * 1.5)
+                return j + 1, w
+            j, w = graph.fixed_rounds(5, lambda j, w: w.sum() < limit * 4.0, inner,
+                                      zero(v), v)
+            return i + 1, w - 1.0
+        return graph.fixed_rounds(4, lambda i, v: (v.sum() < limit * 40.0) & p, rounds,
+                                  zero(x), x)
+
+    x0 = torch.arange(4, **f32)
+    inputs = {      # (p, x, limit) at each launch
+        "if": [(True, x0, 0.5), (False, x0, 0.5), (True, -x0, 2.0)],
+        "while": [(True, x0, 30.0), (True, x0, 100.0), (True, x0, -1.0)],
+        "nested": [(True, x0, 10.0), (True, -x0, 1e4), (False, x0, 1e4), (True, x0, -1.0)],
+    }
+    inputs["if_else"] = inputs["if"]
+    fns = {"if": if_fn, "if_else": if_fn, "while": while_fn, "nested": nested_fn}
+    worst = 0.0
+    for case in cases:
+        t0 = time.perf_counter()
+        p = torch.zeros((), dtype=torch.bool, device=device)
+        x, limit = torch.zeros(4, **f32), torch.zeros((), **f32)
+        with graph.counting():
+            g, out, run = graph.capture_fn(lambda: fns[case](p, x, limit), device,
+                                           if_else=False if case == "if" else None)
+        for pv, xv, lv in inputs[case]:
+            p.fill_(pv)
+            x.copy_(xv)
+            limit.fill_(lv)
+            g.replay()
+            torch.cuda.synchronize()
+            want = fns[case](torch.tensor(pv, device=device), xv.clone(),
+                             torch.tensor(lv, **f32))
+            for a, b in zip(graph._leaves(out), graph._leaves(want)):
+                check(a.dtype == b.dtype and a.shape == b.shape, f"{case}: output shape differs")
+                same = bool(torch.equal(a, b))
+                diff = 0.0 if same else float((a.double() - b.double()).abs().max())
+                worst = max(worst, diff)
+                check(same, f"{case} at p={pv} limit={lv}: a node's output differs from the host "
+                            f"branch's by {diff:.3g}")
+            # the conditions the nodes' stand-in reads on the CPU, one
+            # set_condition each (two an IF/ELSE in the two-IF form)
+            stand_in = CountingNodes(1 if run.versions["if_else"] else 2)
+            with graph.conditional_form(stand_in):
+                fns[case](torch.tensor(pv), xv.cpu(), torch.tensor(lv, dtype=torch.float32))
+            evals = run.set_condition_evaluations()
+            check(evals == stand_in.reads, f"{case}: {evals} set_condition executions, the "
+                                           f"stand-in read {stand_in.reads} conditions")
+        log(f"  {case}: {len(inputs[case])} launches of one capture bit-equal to the host branch; "
+            f"nodes {run.cond_nodes}, set_condition kernel nodes "
+            f"{run.kernel_nodes['set_condition']}, executions in the last launch {evals} "
+            f"({time.perf_counter() - t0:.2f} s)")
+        del g
+    return worst
+
+
+def set_condition_timings(device, reps=50):
+    """``set_condition`` beside its plain version: ``ms`` one ``device_cond``
+    as a node (its ``set_condition`` launch, an IF/ELSE node, one-element
+    sides), per node from ``reps`` of them chained in one graph, between
+    CUDA events (best of three launches); ``device_ms`` the kernel's own
+    time, its mean record under torch.profiler in that graph; ``plain_ms``
+    the host read of the predicate per call between CUDA events; beside
+    them the same chain in the select form (both sides and a
+    ``torch.where`` a link).  Bound: the byte it reads."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from trajopt_tpu_torch.runtime import graph
+
+    pred = torch.tensor(True, device=device)
+    x = torch.zeros(1, device=device, dtype=torch.float32)
+
+    def chain():
+        y = x
+        for _ in range(reps):
+            y = graph.device_cond(pred, lambda a: a + 1.0, lambda a: a - 1.0, y)
+        return y
+
+    def per_link(g):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        best = float("inf")
+        for _ in range(3):
+            start.record()
+            g.replay()
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end) / reps)
+        return best
+
+    g, y, run = graph.capture_fn(chain, device)
+    ms = per_link(g)
+    check(float(y) == reps, f"set_condition timing chain: {float(y)}, the host branch gives {reps}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        g.replay()
+        torch.cuda.synchronize()
+    recs = [e for e in prof.key_averages() if "set_condition" in e.key]
+    n = sum(e.count for e in recs)
+    busy_us = 0.0
+    for e in recs:
+        t = getattr(e, "self_device_time_total", None)
+        busy_us += e.self_cuda_time_total if t is None else t
+    gs, ys, _ = graph.capture_fn(chain, device, form="select")
+    select_ms = per_link(gs)
+    check(float(ys) == reps, "set_condition timing chain: the select form differs")
+    return {"shape": "0-d bool", "ms": ms, "device_ms": busy_us / 1e3 / max(n, 1),
+            "records": n, "plain_ms": time_ms(lambda: bool(pred)), "select_ms": select_ms,
+            "bound_ms": bound_ms(1, 0)[0], "bound_by": bound_ms(1, 0)[1],
+            "library_ms": None, "library_device_ms": None}
+
+
+
 def check_kernels(device, log, seed=0, pair_diffs=None):
     """Every kernel against its plain version; returns max abs errors.
     ``pair_diffs``: the 64-robot start's pair differences [N,36,3] (built
@@ -1253,7 +1452,9 @@ def check_kernels(device, log, seed=0, pair_diffs=None):
         t.append(time.perf_counter())
         log(f"  ({what}: {t[-1] - t[-2]:.1f} s)")
 
-    errs = {"smallest_k": check_topk(device, rng, log)}
+    errs = {"set_condition": cond_probe(device, log)}
+    lap("conditional nodes")
+    errs["smallest_k"] = check_topk(device, rng, log)
     lap("K1 checks")
     errs["gjk_exact"] = check_gjk(device, rng, pair_diffs, log)
     lap("K2 checks")
@@ -1786,8 +1987,10 @@ def fused_cases():
     ]
 
 
-def path_kernels(cfg, coupled, pieces):
-    """(the kernels a solve with ``cfg`` must launch, those it must not).
+def path_kernels(cfg, coupled, pieces, fused=False):
+    """(the kernels a solve with ``cfg`` must launch, those it must not);
+    ``fused``: a fused solve in the conditional form, which launches
+    ``set_condition`` (a host-stepped solve must not).
     Past ns = 9P - 3 = 64 a single UAV's reduced KKT is block-tridiagonal
     (K3 in plain mode on its 18 x 18 blocks, `solve_triangular` solves),
     with no launch of `chol_solve`.  ``psd_method="eigh"`` shifts by K6's
@@ -1796,11 +1999,14 @@ def path_kernels(cfg, coupled, pieces):
     mode)."""
     tridiagonal = coupled is None and 9 * pieces - 3 > 64
     on = [k for k in SOLVE_KERNELS if k != "chol_solve" or not tridiagonal]
+    off = []
     if cfg.psd_method != "eigh":
-        return on, ["eigvalsh"]
-    if tridiagonal:
-        return on + ["eigvalsh"], []
-    return [k for k in on if k != "mod_chol"] + ["eigvalsh"], ["mod_chol"]
+        off = ["eigvalsh"]
+    elif tridiagonal:
+        on.append("eigvalsh")
+    else:
+        on, off = [k for k in on if k != "mod_chol"] + ["eigvalsh"], ["mod_chol"]
+    return (on + ["set_condition"], off) if fused else (on, off + ["set_condition"])
 
 
 def check_path_launches(label, launches, on, off=(), kernel_nodes=None):
@@ -1854,116 +2060,163 @@ def _fused_solve(consts, cfg, scene, state0, coupled, max_iters):
                                            max_iters=max_iters)[:3]
 
 
-def flag_read_cost(cap, reps=10):
-    """(ms per replay with the host reading the flag after each, ms per
-    replay back to back with one read at the end), best of two, host clock
-    around work that ends in a read of the flag."""
-    import torch
+def _fused_carry(consts, cfg, state0):
+    """The fused loop's start carry: (state,), and the empty plane caches
+    under ``optimal_plane``."""
+    from trajopt_tpu_torch.solver import multi
 
-    def timed(read_each):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            cap.graph.replay()
-            if read_each:
-                bool(cap.flag)
-        bool(cap.flag)
-        return (time.perf_counter() - t0) * 1e3 / reps
-
-    return min(timed(True), timed(True)), min(timed(False), timed(False))
+    carry = (state0,)
+    if cfg.optimal_plane:
+        carry += (multi.init_multi_caches(cfg, consts, state0.spline.shape[0],
+                                          device=state0.spline.device,
+                                          dtype=state0.spline.dtype),)
+    return carry
 
 
-def fused_phase(device, cases, host_rows, launches, by_shape, log):
+def solve_busy(cap):
+    """(device busy ms, profiled wall ms) of one whole solve of the captured
+    loop ``cap`` (`device_busy_share`): one launch in the conditional form,
+    the replays up to the flag's false in the select form."""
+    def solve():
+        while cap.replay():
+            pass
+
+    return device_busy_share(solve, 1)
+
+
+def fused_phase(device, cases, host_rows, launches, by_shape, log, select=True):
     """Phases 6 and 8: the fused driver of each of ``cases`` (`SolveCase`)
-    on the card at full width, with the counts set to 0 just before and
-    read just after, each held to the host-stepped solve of the same run
+    on the card at full width, in the conditional form (the drivers'
+    default: one graph launch, the solve's WHILE node around the step with
+    its IF and WHILE nodes), with the counts set to 0 just before and read
+    just after, held to the host-stepped solve of the same run
     (``host_rows``: the same iteration count and a bit-equal final state),
     to its reference (`check_solution`), to the kernels of its path
-    (`path_kernels`: launched and held as nodes of the graph, or not
-    launched), and to host syncs of the solve = graph replays + the 2
-    final reads (iterations and gnorm) this script makes.  Prints the kernel
-    nodes per capture (each runs once per replay; they are not executions),
-    warm-up and capture ms, wall ms per iteration beside the host-stepped
-    solve's, and, over one replay from the start state under
-    torch.profiler, the device busy ms, the idle share, and the busy ms of
-    one host-stepped step from the same state (the select form's extra
-    device work), and what a host read of the flag costs per replay
-    (`flag_read_cost`).  Returns the rows, with the final states."""
+    (`path_kernels`: launched and held as nodes of the graph,
+    ``set_condition`` among them, or not launched), and to host syncs of
+    the solve = the 2 final reads (iterations and gnorm) this script makes,
+    after 1 graph launch; then, with ``select`` (phase 6), the same loop in
+    the select form (`graph.run_fused(form="select")`: one block replayed
+    until its flag reads false), held bit-equal to both, with syncs =
+    replays + 2.  Prints for each form, from this run: graph launches, replay ms per iteration
+    (conditional: the launch between CUDA events; select: the replays on
+    the host clock, flag reads included), whole-call ms per iteration,
+    warm-up and capture ms, IF and WHILE nodes, the graph's nodes by type,
+    kernel nodes per capture and their executions in the solve
+    (conditional: from the nodes' ``set_condition`` tallies; select: nodes
+    x replays) beside the host-stepped solve's launches; with ``select``
+    (phase 6) each form's solve captured again and launched once under
+    torch.profiler for device busy ms and idle share over one whole solve
+    (`solve_busy`; phase 8 leaves the profiler out, see `log_batch_run`);
+    last every conditional capture launched again after
+    `torch.cuda.empty_cache`, bit-equal to the host-stepped state
+    (`relaunch_after_empty_cache`).  Returns the rows, with the final
+    states."""
     import torch
     from trajopt_tpu_torch.ops import _cuda
     from trajopt_tpu_torch.runtime import graph
-    from trajopt_tpu_torch.solver import driver, multi
+    from trajopt_tpu_torch.solver import driver
 
-    fused_rows = {}
+    fused_rows, held = {}, []
     for case in cases:
         cfg, ops, cloud, consts, scene, state0 = case.build(device)
         coupled = case.coupled
         host = host_rows[case.label]
         max_iters = MAX_ITERS if coupled is None else FLEET_MAX_ITERS
-        out = {}
-
-        def solve():
-            state, it, gnorm = _fused_solve(consts, cfg, scene, state0, coupled, max_iters)
-            out.update(state=state, it=int(it), gnorm=float(gnorm))
-
-        key = f"{case.label} fused"
-        _cuda.reset_launches()
-        t0 = time.perf_counter()
-        syncs = count_syncs(solve, outside=True)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        torch.cuda.synchronize()
-        launches[key], by_shape[key] = dict(_cuda.LAUNCHES), shape_counts()
-        run = graph.LAST_RUN
-        state, it = out["state"], out["it"]
-        quality = (single_quality if coupled is None else fleet_quality)(ops, cloud, state)
-        row = {"iters": it, "gnorm": out["gnorm"], "offset": cfg.offset,
-               "converged": it < max_iters and out["gnorm"] < cfg.stop, **quality}
-        fused_rows[case.label] = dict(row, state=state)
-        same = equal_trees(state, host["state"])
-        log(f"  {key}: iters {it} (host-stepped {host['iters']}), gnorm {out['gnorm']:.4g}, "
-            f"replays {run.replays} of {run.steps_per_replay} step(s), final state bit-equal to "
-            f"the host-stepped solve's: {same}")
-        log(f"    kernel nodes per capture (each runs once per replay; not executions): "
-            + ", ".join(f"{k} {v}" for k, v in run.kernel_nodes.items()))
-        log(f"    warm-up {run.warmup_ms:.1f} ms, capture {run.capture_ms:.1f} ms, replays "
-            f"{run.replay_ms:.1f} ms = {run.replay_ms / max(it, 1):.3f} ms/iter; whole call "
-            f"{wall_ms:.1f} ms = {wall_ms / max(it, 1):.3f} ms/iter; host-stepped median "
-            f"{host['median_iter_ms']:.3f} ms/iter, mean {host['solve_s'] * 1e3 / host['iters']:.3f}")
-        log_launches(key, launches[key], by_shape[key], log)
-        check_path_launches(key, launches[key], *path_kernels(cfg, coupled, consts.piece_num),
-                            kernel_nodes=run.kernel_nodes)
-        check(it == host["iters"], f"{key}: {it} iterations, the host-stepped solve took "
-                                   f"{host['iters']}")
-        check(same, f"{key}: the final state differs from the host-stepped solve's")
-        check_solution(key, case, row, cfg, consts, state, log)
-        total = sum(syncs.values())
-        log(f"    host syncs in the whole fused solve: {total}")
-        for line, n in sorted(syncs.items()):
-            log(f"      {n:3d}  {line}")
-        check(total == run.replays + 2, f"{key}: {total} host syncs, expected {run.replays} "
-                                        "replays + 2 final reads")
-
-        # one replay from the start state against one host-stepped step
-        carry = (state0,)
-        if cfg.optimal_plane:
-            carry += (multi.init_multi_caches(cfg, consts, state0.spline.shape[0], device=device,
-                                              dtype=state0.spline.dtype),)
         step = driver.fused_step(consts, cfg, scene, coupled, cached=cfg.optimal_plane)
-        cap = graph.capture(step, carry, max_iters, cfg.stop)
-        busy, replay_wall = device_busy_share(cap.replay, 1)
-        eager_busy, eager_wall = device_busy_share(lambda: step(carry), 1)
-        # what a longer block would save: the flag read and the next launch
-        # after each replay (STEPS_PER_REPLAY); a replay past the stop still
-        # runs the step (select form), so the timing is the same either way
-        read_ms, back_ms = flag_read_cost(cap)
-        del cap
-        log(f"    torch.profiler, one replay from the start: device busy {busy:.3f} ms of "
-            f"{replay_wall:.3f} ms wall, idle share {1.0 - busy / replay_wall:.3f}; one "
-            f"host-stepped step from the same state: busy {eager_busy:.3f} ms of "
-            f"{eager_wall:.3f} ms wall (select form adds {busy - eager_busy:.3f} ms)")
-        log(f"    10 replays, ms each (host clock): with the flag read after each {read_ms:.4f}, "
-            f"back to back with one read at the end {back_ms:.4f} (a read costs "
-            f"{read_ms - back_ms:.4f})")
+        on, off = path_kernels(cfg, coupled, consts.piece_num, fused=True)
+        forms = {}
+        for form in ("conditional", "select") if select else ("conditional",):
+            out = {}
+
+            def solve():
+                if form == "conditional":
+                    state, it, gnorm = _fused_solve(consts, cfg, scene, state0, coupled, max_iters)
+                else:
+                    (state, *_), it, gnorm = graph.run_fused(
+                        step, _fused_carry(consts, cfg, state0), max_iters, cfg.stop, form=form)
+                out.update(state=state, it=int(it), gnorm=float(gnorm))
+
+            key = f"{case.label} fused" + ("" if form == "conditional" else " select")
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            with graph.counting():
+                syncs = count_syncs(solve, outside=True)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            launches[key], by_shape[key] = dict(_cuda.LAUNCHES), shape_counts()
+            run = graph.LAST_RUN
+            check(run.form == form, f"{key}: ran in the {run.form} form")
+            state, it = out["state"], out["it"]
+            same = equal_trees(state, host["state"])
+            total = sum(syncs.values())
+            reads = 2 + (run.replays if form == "select" else 0)
+            execs = run.executions()
+            forms[form] = dict(it=it, state=state, replays=run.replays, replay_ms=run.replay_ms,
+                               wall_ms=wall_ms, syncs=total)
+            log(f"  {key}: iters {it} (host-stepped {host['iters']}), gnorm {out['gnorm']:.4g}, "
+                f"{run.replays} graph launch(es), final state bit-equal to the host-stepped "
+                f"solve's: {same}")
+            log(f"    replay {run.replay_ms:.3f} ms = {run.replay_ms / max(it, 1):.3f} ms/iter; "
+                f"whole call {wall_ms:.1f} ms = {wall_ms / max(it, 1):.3f} ms/iter; warm-up "
+                f"{run.warmup_ms:.1f} ms, capture {run.capture_ms:.1f} ms; host-stepped median "
+                f"{host['median_iter_ms']:.3f} ms/iter, mean "
+                f"{host['solve_s'] * 1e3 / host['iters']:.3f}")
+            cap = graph.capture(step, _fused_carry(consts, cfg, state0), max_iters, cfg.stop, form)
+            if select:
+                busy, busy_wall = solve_busy(cap)
+                forms[form].update(busy=busy, busy_wall=busy_wall)
+                log(f"    one whole solve under torch.profiler: device busy {busy:.3f} ms of "
+                    f"{busy_wall:.3f} ms wall, idle share {1.0 - busy / busy_wall:.3f}")
+            if form == "conditional":
+                held.append((key, cap, host["state"], step))
+            del cap
+            log(f"    conditional nodes: {run.cond_nodes or 'none'}")
+            log("    kernel nodes per capture / executions in the solve / host-stepped launches: "
+                + ", ".join(f"{k} {v} / {execs.get(k, 0)} / {launches.get(case.label, {}).get(k, '-')}"
+                            for k, v in run.kernel_nodes.items()))
+            if form == "conditional":
+                log_launches(key, launches[key], by_shape[key], log)
+            log(f"    host syncs in the whole fused solve: {total}")
+            for line, n in sorted(syncs.items()):
+                log(f"      {n:3d}  {line}")
+            check_path_launches(key, launches[key], *((on, off) if form == "conditional" else
+                                                     ([k for k in on if k != "set_condition"],
+                                                      off + ["set_condition"])),
+                                kernel_nodes=run.kernel_nodes)
+            check(it == host["iters"], f"{key}: {it} iterations, the host-stepped solve took "
+                                       f"{host['iters']}")
+            check(same, f"{key}: the final state differs from the host-stepped solve's")
+            check(total == reads, f"{key}: {total} host syncs, expected {reads} (flag reads and "
+                                  "the 2 final reads)")
+            if form == "conditional":
+                check(run.replays == 1, f"{key}: {run.replays} graph launches, expected 1")
+                # the nodes' tallies against the host-stepped solve's launches,
+                # which its start-up clearance check raises by at most one
+                host_launches = launches.get(case.label, {})
+                extra = {k: n - execs.get(k, 0) for k, n in host_launches.items()
+                         if k != "set_condition"}
+                check(all(0 <= n <= 1 for n in extra.values()),
+                      f"{key}: kernel executions {execs}, the host-stepped solve launched "
+                      f"{host_launches}")
+                quality = (single_quality if coupled is None else fleet_quality)(ops, cloud, state)
+                row = {"iters": it, "gnorm": out["gnorm"], "offset": cfg.offset,
+                       "converged": it < max_iters and out["gnorm"] < cfg.stop, **quality}
+                fused_rows[case.label] = dict(row, state=state)
+                check_solution(key, case, row, cfg, consts, state, log)
+        if not select:
+            continue
+        c, s_ = forms["conditional"], forms["select"]
+        check(equal_trees(c["state"], s_["state"]) and c["it"] == s_["it"],
+              f"{case.label}: the conditional and select forms differ")
+        log(f"  {case.label} conditional / select: replay ms/iter {c['replay_ms'] / c['it']:.3f} / "
+            f"{s_['replay_ms'] / s_['it']:.3f}, whole call ms/iter {c['wall_ms'] / c['it']:.3f} / "
+            f"{s_['wall_ms'] / s_['it']:.3f}, graph launches {c['replays']} / {s_['replays']}, host "
+            f"syncs {c['syncs']} / {s_['syncs']}, busy ms {c['busy']:.3f} / {s_['busy']:.3f} "
+            f"(select extra {(s_['busy'] - c['busy']) / c['it']:.3f} ms/iter), idle share "
+            f"{1 - c['busy'] / c['busy_wall']:.3f} / {1 - s_['busy'] / s_['busy_wall']:.3f}; "
+            f"bit-equal")
+    relaunch_after_empty_cache(held, log)
     return fused_rows
 
 
@@ -2058,7 +2311,7 @@ def batch_clearances(ops, cloud, splines, times, device):
     return torch.stack(out).cpu().numpy()
 
 
-def run_fused_path(label, solve, launches, by_shape, log, on_path=SOLVE_KERNELS, off_path=()):
+def run_fused_path(label, solve, launches, by_shape, log, on_path=FUSED_KERNELS, off_path=()):
     """``solve()`` (a fused driver call) with the launch counts set to 0
     just before and read just after; every kernel of ``on_path`` must have
     been launched and hold a node in the graph, none of ``off_path``
@@ -2069,7 +2322,8 @@ def run_fused_path(label, solve, launches, by_shape, log, on_path=SOLVE_KERNELS,
 
     _cuda.reset_launches()
     t0 = time.perf_counter()
-    out = solve()
+    with graph.counting():
+        out = solve()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     launches[label], by_shape[label] = dict(_cuda.LAUNCHES), shape_counts()
@@ -2078,28 +2332,46 @@ def run_fused_path(label, solve, launches, by_shape, log, on_path=SOLVE_KERNELS,
     return out, wall_ms, run
 
 
-def log_batch_run(label, b, it, wall_ms, run, busy, replay_wall, log):
-    """What (a) and (c) report of one fused batch solve."""
+def log_batch_run(label, b, it, wall_ms, run, log):
+    """What (a) and (c) report of one fused batch solve (conditional form:
+    one graph launch).  No device busy share: under torch.profiler CUPTI
+    records the kernels of conditional bodies for about 330k records in a
+    process, then none, and a later profiled launch faults with an illegal
+    address, also in a graph of plain torch ops that runs clean unprofiled
+    (`tools/cond_fault_check.py`'s heavy cases; PERF.md, section 6).
+    Phase 6's five profiled solves stay below that; phases 7-8 relaunch
+    their solves unprofiled (`relaunch_after_empty_cache`)."""
     log(f"  {label}: {it} iterations of {b} scenarios; warm-up {run.warmup_ms:.1f} + capture "
-        f"{run.capture_ms:.1f} ms, replays {run.replay_ms:.1f} ms = "
+        f"{run.capture_ms:.1f} ms, {run.replays} launch {run.replay_ms:.1f} ms = "
         f"{run.replay_ms / max(it, 1):.3f} ms/iter, {b * it / (run.replay_ms / 1e3):.1f} "
-        f"scenario-iterations/s over the replays ({b * it / (wall_ms / 1e3):.1f} over the whole "
+        f"scenario-iterations/s over the launch ({b * it / (wall_ms / 1e3):.1f} over the whole "
         f"call of {wall_ms:.1f} ms)")
-    log(f"    kernel nodes per capture (each runs once per replay; not executions): "
-        + ", ".join(f"{k} {v}" for k, v in run.kernel_nodes.items()))
-    log(f"    torch.profiler, one replay from the start: device busy {busy:.3f} ms of "
-        f"{replay_wall:.3f} ms wall, idle share {1.0 - busy / replay_wall:.3f}")
+    execs = run.executions()
+    log(f"    nodes {run.cond_nodes}; kernel nodes per capture / executions in the solve: "
+        + ", ".join(f"{k} {v} / {execs.get(k, 0)}" for k, v in run.kernel_nodes.items()))
 
 
-def replay_busy(step, carry, max_iters, stop):
-    """(device busy ms, wall ms) of one replay of the captured block from
-    ``carry`` (`device_busy_share`)."""
-    from trajopt_tpu_torch.runtime import graph
+def relaunch_after_empty_cache(held, log):
+    """Each captured solve of ``held`` ((label, conditional-form
+    `graph.Captured`, the state it must end in, its step)) launched with no
+    profiler after one `torch.cuda.empty_cache` has returned every free
+    cached block to the driver, its final state held to the expected one
+    bit for bit: a graph that read memory it does not own (such as a block
+    the shared pool freed after the capture) faults or differs.  The step
+    is held because its closure holds the constants and the scene the
+    graph reads.  Run at the end of a phase, since the emptied cache slows
+    the allocations after it."""
+    import torch
 
-    cap = graph.capture(step, carry, max_iters, stop)
-    out = device_busy_share(cap.replay, 1)
-    del cap
-    return out
+    torch.cuda.empty_cache()
+    for label, cap, want, _step in held:
+        cap.replay()
+        torch.cuda.synchronize()
+        check(equal_trees(cap.carry[0], want), f"{label}: the solve launched after "
+                                               "torch.cuda.empty_cache differs")
+    log(f"  relaunched after torch.cuda.empty_cache, each bit-equal: "
+        f"{', '.join(entry[0] for entry in held)}")
+    held.clear()
 
 
 def max_diff(a, b):
@@ -2122,8 +2394,10 @@ def batch_single_phase(device, launches, by_shape, log):
     import numpy as np
     import torch
     from trajopt_tpu_torch import types as tt
+    from trajopt_tpu_torch.runtime import graph
     from trajopt_tpu_torch.solver import driver
 
+    held = []
     for b in BATCH_SIZES:
         t0 = time.perf_counter()
         cfg, ops, cloud, consts, scene, states = build_batch(b, device)
@@ -2135,8 +2409,8 @@ def batch_single_phase(device, launches, by_shape, log):
         it = int(it)
         check(it == BATCH_ITERS, f"{label}: {it} iterations, stop 0 runs {BATCH_ITERS}")
         step = driver.fused_step(consts, cfg, scene, False, interact=False)
-        busy, replay_wall = replay_busy(step, (states,), BATCH_ITERS, cfg.stop)
-        log_batch_run(label, b, it, wall_ms, run, busy, replay_wall, log)
+        log_batch_run(label, b, it, wall_ms, run, log)
+        held.append((label, graph.capture(step, (states,), BATCH_ITERS, cfg.stop), out, step))
         log(f"    launches {launches[label]}")
         log(f"    launches by call shape: {by_shape[label]}")
         overflow = first_step_overflow(consts, cfg, states, scene, coupled=False, interact=False)
@@ -2178,7 +2452,7 @@ def batch_single_phase(device, launches, by_shape, log):
     quality = single_quality(ops, cloud, tt.index(out, 0))
     row = {"iters": it, "gnorm": gnorm, "offset": cfg.offset,
            "converged": it < MAX_ITERS and gnorm < cfg.stop, **quality}
-    log(f"  {label}: {it} iterations, mean gnorm {gnorm:.4g} (stop {cfg.stop}), replays "
+    log(f"  {label}: {it} iterations, mean gnorm {gnorm:.4g} (stop {cfg.stop}), the launch "
         f"{run.replay_ms / max(it, 1):.3f} ms/iter, whole call {wall_ms:.1f} ms")
     check(row["converged"], f"{label}: the mean gnorm did not fall below stop in {MAX_ITERS}")
     check_parity(f"{label} scenario 0", row, reference_row("single", pieces=4), log)
@@ -2188,6 +2462,7 @@ def batch_single_phase(device, launches, by_shape, log):
     log(f"    curve clearance over the {GATE_BATCH} scenarios: min {clr.min():.5f} (offset "
         f"{cfg.offset}); case {time.perf_counter() - t0:.1f} s")
     check(bool((clr >= cfg.offset).all()), f"{label}: a scenario's clearance is below offset")
+    relaunch_after_empty_cache(held, log)
 
 
 def fleet_batch_phase(device, launches, by_shape, log):
@@ -2199,8 +2474,10 @@ def fleet_batch_phase(device, launches, by_shape, log):
     import torch
     from trajopt_tpu_torch import types as tt
     from trajopt_tpu_torch.ops import _cuda
+    from trajopt_tpu_torch.runtime import graph
     from trajopt_tpu_torch.solver import driver
 
+    held = []
     runs = [(b, True) for b in FLEET_BATCHES] + [(FLEET_BATCHES[0], False)]
     for b, coupled in runs:
         t0 = time.perf_counter()
@@ -2215,8 +2492,9 @@ def fleet_batch_phase(device, launches, by_shape, log):
         check(it == BATCH_ITERS, f"{label}: {it} iterations, stop 0 runs {BATCH_ITERS}")
         flat = tt.SolverState(*(x.reshape((-1,) + tuple(x.shape[2:])) for x in states))
         step = driver.fused_step(consts, cfg, scene, coupled, groups=b)
-        busy, replay_wall = replay_busy(step, (flat,), BATCH_ITERS, cfg.stop)
-        log_batch_run(label, b, it, wall_ms, run, busy, replay_wall, log)
+        log_batch_run(label, b, it, wall_ms, run, log)
+        held.append((label, graph.capture(step, (flat,), BATCH_ITERS, cfg.stop),
+                     tt.SolverState(*(x.reshape((-1,) + tuple(x.shape[2:])) for x in out)), step))
         log(f"    launches {launches[label]}")
         log(f"    launches by call shape: {by_shape[label]}")
         overflow = first_step_overflow(consts, cfg, flat, scene, coupled=coupled, groups=b)
@@ -2240,6 +2518,7 @@ def fleet_batch_phase(device, launches, by_shape, log):
             f"(offset {cfg.offset}); case {time.perf_counter() - t0:.1f} s")
         check(quality["min_clearance"] >= cfg.offset, f"{label}: clearance below offset")
         check(bool((out.piece_time > 0).all()), f"{label}: a piece time is not positive")
+    relaunch_after_empty_cache(held, log)
 
 
 def equal_trees(a, b):
@@ -2292,7 +2571,7 @@ def sharding_phase(device, fused_rows, launches, by_shape, log):
             launches[label], by_shape[label] = dict(_cuda.LAUNCHES), shape_counts()
             log(f"  {label}: states and diags bit-equal to multi_admm_step: {same}")
             check(same, f"{label}: the sharded step differs from multi_admm_step")
-            check_path_launches(label, launches[label], SOLVE_KERNELS, ("eigvalsh",))
+            check_path_launches(label, launches[label], SOLVE_KERNELS, ("eigvalsh", "set_condition"))
 
         label = f"u{FLEET} coupled fused axis_name"
         (state, it, gnorm), wall_ms, run = run_fused_path(
@@ -2304,8 +2583,9 @@ def sharding_phase(device, fused_rows, launches, by_shape, log):
                 and np.array_equal(state.piece_time.detach().double().cpu().numpy(),
                                    ref["piece_time"]))
         log(f"  {label}: {int(it)} iterations (phase 6: {ref['iters']}), state bit-equal to phase "
-            f"6's: {same}; replays {run.replay_ms / max(int(it), 1):.3f} ms/iter, warm-up "
-            f"{run.warmup_ms:.1f} + capture {run.capture_ms:.1f} ms, kernel nodes "
+            f"6's: {same}; {run.form} form, {run.replays} launch(es) "
+            f"{run.replay_ms / max(int(it), 1):.3f} ms/iter, warm-up {run.warmup_ms:.1f} + "
+            f"capture {run.capture_ms:.1f} ms, nodes {run.cond_nodes}, kernel nodes "
             f"{run.kernel_nodes}")
         check(int(it) == ref["iters"], f"{label}: {int(it)} iterations, phase 6 took {ref['iters']}")
         check(same, f"{label}: the final state differs from phase 6's")
@@ -2325,7 +2605,7 @@ def sharding_phase(device, fused_rows, launches, by_shape, log):
             same &= equal_trees(tt.index(got, i), want) and equal_trees(tt.index(diags, i), want_diag)
         log(f"  {label}: each scenario bit-equal to its multi_admm_step: {same}")
         check(same, f"{label}: differs from the per-scenario steps")
-        check_path_launches(label, launches[label], SOLVE_KERNELS, ("eigvalsh",))
+        check_path_launches(label, launches[label], SOLVE_KERNELS, ("eigvalsh", "set_condition"))
 
         label = "scenario-sharded bridge solves, 4 scenes"
         scfg, sops, _, sconsts, _, sstate = build_problem(4, device, torch.float32)
@@ -2346,7 +2626,7 @@ def sharding_phase(device, fused_rows, launches, by_shape, log):
                      and equal_trees(gnorms[i], gnorm))
         log(f"  {label}: iterations {its.tolist()}, each bit-equal to its solve_fused: {same}")
         check(same, f"{label}: differs from the per-scenario solves")
-        check_path_launches(label, launches[label], SOLVE_KERNELS, ("eigvalsh",))
+        check_path_launches(label, launches[label], FUSED_KERNELS, ("eigvalsh",))
     finally:
         dist.destroy_process_group()
 
@@ -2453,22 +2733,23 @@ def psd_batch(device, method, launches, by_shape, log):
     batch, 50 iterations at stop 0) with ``psd_method=method``: the kernels
     of its path (`path_kernels`), scenarios 0, 7 and 15 within
     BATCH_MATCH_TOL of their own `solve_fused`, every scenario's clearance
-    >= offset."""
+    >= offset; last the solve relaunched after `torch.cuda.empty_cache`."""
     from trajopt_tpu_torch import types as tt
+    from trajopt_tpu_torch.runtime import graph
     from trajopt_tpu_torch.solver import driver
 
     cfg, ops, cloud, consts, scene, states = build_batch(PSD_BATCH, device)
     cfg = cfg.replace(psd_method=method)
     label = f"phase 8 batch{PSD_BATCH} single p4 {method} fused"
-    on, off = path_kernels(cfg, None, consts.piece_num)
+    on, off = path_kernels(cfg, None, consts.piece_num, fused=True)
     (out, it, gnorm), wall_ms, run = run_fused_path(
         label, lambda: driver.solve_fused_batch(consts, cfg, states, scene, max_iters=BATCH_ITERS),
         launches, by_shape, log, on_path=on, off_path=off)
     it = int(it)
     check(it == BATCH_ITERS, f"{label}: {it} iterations, stop 0 runs {BATCH_ITERS}")
     step = driver.fused_step(consts, cfg, scene, False, interact=False)
-    busy, replay_wall = replay_busy(step, (states,), BATCH_ITERS, cfg.stop)
-    log_batch_run(label, PSD_BATCH, it, wall_ms, run, busy, replay_wall, log)
+    log_batch_run(label, PSD_BATCH, it, wall_ms, run, log)
+    held = [(label, graph.capture(step, (states,), BATCH_ITERS, cfg.stop), out, step)]
     log_launches(label, launches[label], by_shape[label], log)
     for i in (0, PSD_BATCH // 2 - 1, PSD_BATCH - 1):
         ref, _, _ = driver.solve_fused(consts, cfg, tt.index(states, i), scene, max_iters=BATCH_ITERS)
@@ -2482,6 +2763,7 @@ def psd_batch(device, method, launches, by_shape, log):
     log(f"    curve clearance over the {PSD_BATCH} scenarios: min {clr.min():.5f} (offset "
         f"{cfg.offset}), mean gnorm {float(gnorm):.4g}")
     check(bool((clr >= cfg.offset).all()), f"{label}: a scenario's clearance is below offset")
+    relaunch_after_empty_cache(held, log)
 
 
 def psd_sharded(device, fused_state, launches, by_shape, log):
@@ -2498,7 +2780,7 @@ def psd_sharded(device, fused_state, launches, by_shape, log):
         cfg, _, _, consts, scene, state0 = build_fleet(FLEET, device, torch.float32,
                                                        psd_method="ladder")
         label = f"phase 8 u{FLEET} coupled ladder fused axis_name"
-        on, off = path_kernels(cfg, True, consts.piece_num)
+        on, off = path_kernels(cfg, True, consts.piece_num, fused=True)
         (state, it, _), _, run = run_fused_path(
             label, lambda: driver.solve_fused_multi(consts, cfg, state0, scene, True,
                                                     max_iters=FLEET_MAX_ITERS,
@@ -2506,7 +2788,8 @@ def psd_sharded(device, fused_state, launches, by_shape, log):
             launches, by_shape, log, on_path=on, off_path=off)
         same = equal_trees(state, fused_state)
         log(f"  {label}: {int(it)} iterations, state bit-equal to the unsharded fused solve's: "
-            f"{same}; replays {run.replay_ms / max(int(it), 1):.3f} ms/iter")
+            f"{same}; {run.form} form, {run.replays} launch(es) "
+            f"{run.replay_ms / max(int(it), 1):.3f} ms/iter")
         check(same, f"{label}: the final state differs from the unsharded fused solve's")
     finally:
         dist.destroy_process_group()
@@ -2520,7 +2803,7 @@ def psd_phase(device, launches, by_shape, log):
     of the cross with the ladder (`psd_sharded`)."""
     cases = psd_cases()
     host_rows = psd_host_phase(device, cases, launches, by_shape, log)
-    fused_rows = fused_phase(device, cases, host_rows, launches, by_shape, log)
+    fused_rows = fused_phase(device, cases, host_rows, launches, by_shape, log, select=False)
     for method in PSD_METHODS:
         psd_batch(device, method, launches, by_shape, log)
     psd_sharded(device, fused_rows[f"phase 8 u{FLEET} coupled ladder"]["state"], launches,
@@ -3267,6 +3550,11 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     _cuda.lib()
     log(f"kernel build: {_cuda.build_info['seconds']:.2f} s (cached={_cuda.build_info['cached']})")
+    from trajopt_tpu_torch.ops import cuda_cond
+
+    runtime, driver_version = cuda_cond.versions()
+    log(f"CUDA runtime of the kernel library {runtime}, driver {driver_version}: an IF/ELSE is "
+        + ("one IF node with an ELSE body" if cuda_cond.if_else_nodes() else "two IF nodes"))
     for line in ptxas_report(_cuda.build_info["log"]):
         log("  ptxas: " + line)
     phase_done(1)
@@ -3406,6 +3694,12 @@ def main() -> int:
         f"{floor_eig['round_ms']:.6f}")
     times["eigvalsh"] = next(r for r in psd_rows if r["kernel"] == "eigvalsh"
                              and r["shape"] == EIG_HEADLINE)
+    sc = times["set_condition"] = set_condition_timings(device)
+    log(f"  set_condition: one device_cond node (set_condition, an IF/ELSE node, one-element "
+        f"sides) {sc['ms']:.5f} ms a node in a chain of 50 in one graph (the select form's "
+        f"link {sc['select_ms']:.5f}); the kernel {sc['device_ms']:.5f} ms (mean of "
+        f"{sc['records']} profiler records); plain (host read of the predicate) "
+        f"{sc['plain_ms']:.4f} ms per call; bound {sc['bound_ms']:.2e} ms ({sc['bound_by']})")
     phase_done(5)
 
     # -- phase 6 ------------------------------------------------------------
@@ -3436,6 +3730,7 @@ def main() -> int:
     path = {name: f"u{FLEET} coupled" for name in KERNELS}
     path["gjk_fw"] = f"u{FLEET} coupled pair clearance"
     path["eigvalsh"] = f"phase 8 u{FLEET} coupled eigh"
+    path["set_condition"] = f"u{FLEET} coupled fused"
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         tm = times[name]

@@ -1,9 +1,10 @@
 """The torch port's fused single-UAV driver and the device control flow under
 it, on the CPU in float64: `solve_fused` against the JAX package's, every
 fused driver against the port's host-stepped one bit for bit, every step
-body in the select form (`runtime.graph.select_form`, the form a CUDA graph
-holds) without a host sync and bit-equal to the branch form, every
-`device_cond` site driven both ways (the steps with ``psd_method="eigh"``
+body in the select form (`runtime.graph.select_form`, which a graph of
+straight-line kernels holds: the fused loop's ``form="select"`` and the
+warm-up before each capture) without a host sync and bit-equal to the
+branch form, every `device_cond` site driven both ways (the steps with ``psd_method="eigh"``
 and ``"ladder"`` too), and the P >= 8 KKT against the JAX package's.  The
 fused multi-robot drivers against JAX are in tests/test_torch_fused_multi.py,
 every fused driver with each PSD repair in tests/test_torch_psd.py."""
@@ -364,8 +365,8 @@ BODIES = ["single", "single_eigh", "single_ladder", "single_optimal_plane", "cou
 
 @pytest.mark.parametrize("body", BODIES)
 def test_select_form_step_has_no_host_sync(body):
-    """Each step body in the select form, the form a CUDA graph holds,
-    finishes under `NoHostSync` and equals the branch form's step bit for
+    """Each step body in the select form, which a straight-line CUDA graph
+    holds, finishes under `NoHostSync` and equals the branch form's step bit for
     bit, from every start of the body."""
     assert _select_body(body)
 

@@ -27,7 +27,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("topk.cu", "gjk.cu", "gjk_fw.cu", "chol.cu", "eig.cu")
+SOURCES = ("topk.cu", "gjk.cu", "gjk_fw.cu", "chol.cu", "eig.cu", "graph_cond.cu")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -37,16 +37,18 @@ FLAGS = (
 # kernel and nowhere else, so a run can prove its main path used them.
 # LAUNCH_SHAPES splits the same counts by (kernel, call shape key).  They
 # count host calls: while a CUDA graph is captured a call adds a kernel node,
-# which then runs once per replay uncounted (`runtime.graph.capture` keeps
-# the per-capture count, `Captured.kernel_nodes`).
+# which then runs uncounted, once per replay at the graph's top level and 0
+# or more times a launch inside a conditional node's body
+# (`runtime.graph.FusedRun.kernel_nodes` keeps the per-capture count,
+# `FusedRun.executions` the executions of the last launch).
 LAUNCHES = {"smallest_k": 0, "gjk_exact": 0, "gjk_fw": 0, "mod_chol": 0, "chol_solve": 0,
-            "factor_solve": 0, "eigvalsh": 0}
+            "factor_solve": 0, "eigvalsh": 0, "set_condition": 0}
 LAUNCH_SHAPES: collections.Counter = collections.Counter()
 
 _lib: ctypes.CDLL | None = None
 build_info: dict = {}
 
-_vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_vp, _int, _float, _u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_ulonglong
 _SIGNATURES = {
     "trajopt_smallest_k_warp": [_vp, _vp, _vp, _int, _int, _int, _vp],
     "trajopt_smallest_k_radix": [_vp, _vp, _vp, _int, _int, _int, _vp],
@@ -59,6 +61,13 @@ _SIGNATURES = {
     "trajopt_chol_probe": [_vp, _int, _int, _vp],
     "trajopt_eigvalsh": [_vp, _vp, _int, _int, _vp],
     "trajopt_eig_probe": [_vp, _int, _vp],
+    "trajopt_set_condition": [_u64, _vp, _int, _vp, _vp],
+    "trajopt_cond_probe": [_vp],
+    "trajopt_cond_handle": [_vp, _vp, _vp],
+    "trajopt_cond_node": [_vp, _u64, _int, _int, _vp],
+    "trajopt_stream_create": [_vp],
+    "trajopt_capture_body": [_vp, _vp],
+    "trajopt_end_body": [_vp, _vp],
 }
 
 

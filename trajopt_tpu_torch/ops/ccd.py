@@ -16,7 +16,7 @@ The robot-pair CCD (`pair_max_step_direct` for the coupled step,
 `build_pair_ccd` + `pair_bad` for the decoupled shrink fixpoint) follows
 the same scheme on (segment, partner robot) pairs.  Each `lax.cond` gate of
 the JAX package is a `runtime.graph.device_cond`: a Python branch (one host
-sync) in the host-stepped solve, both sides and a select in a captured one.
+sync) in the host-stepped solve, an IF node of the CUDA graph in a fused one.
 """
 
 from __future__ import annotations

@@ -8,8 +8,7 @@ cache of ``optimal_plane=True``.  Each `lax.cond` of the JAX step is a
 `runtime.graph.device_cond`: `armijo_spline` (step0 accepted?), each further
 stage of a staged ladder, the fleet's live-candidate gate and the gates
 inside the CCD.  In the host-stepped drivers each is a Python branch (one
-device-to-host sync); in the fused drivers' CUDA graph, both sides and a
-select.
+device-to-host sync); in the fused drivers' CUDA graph, an IF node.
 """
 
 from __future__ import annotations

@@ -11,9 +11,11 @@ Port of `trajopt_tpu/solver/driver.py`:
   ``wall_ms`` is taken;
 - fused, `solve_fused`, `solve_fused_multi` and `solve_fused_multi_cached`:
   the whole loop on the device (`runtime.graph.run_fused`: on the card one
-  CUDA graph replayed, one host read of a flag per replay), with the
-  reference's loop condition ``(it < max_iters) & ((it <= 1) | (gnorm >=
-  stop))``.  They run the same step functions as the host-stepped drivers;
+  CUDA graph launched once, a WHILE node under the reference's loop
+  condition ``(it < max_iters) & ((it <= 1) | (gnorm >= stop))`` around
+  the step, whose own branches are IF and WHILE nodes; no host read until
+  the caller reads the result).  They run the same step functions as the
+  host-stepped drivers;
 - scenario batches, `solve_fused_batch` (B single UAVs) and
   `solve_fused_batch_multi` (B fleets), through `solve_fused_multi`.
 """
@@ -26,6 +28,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import TrajOptConfig
 from ..ops import broadphase as bp
@@ -291,6 +294,19 @@ def fused_step(consts: SplineConsts, cfg: TrajOptConfig, scene: Scene,
     return step
 
 
+def fused_form(device: torch.device, axis_name) -> str | None:
+    """The form of the fused loop (`graph.run_fused`'s ``form``): None, its
+    default (conditional on the card), unless the robots are sharded over
+    more than one process on the card, where "select".  NCCL's collectives
+    inside conditional bodies ran only at world size 1, where they launch
+    no collective kernel; across cards the select form keeps every
+    collective at the graph's top level until a multi-card run holds the
+    conditional form to it."""
+    if device.type == "cuda" and axis_name is not None and dist.get_world_size(axis_name) > 1:
+        return "select"
+    return None
+
+
 def solve_fused(
     consts: SplineConsts,
     cfg: TrajOptConfig,
@@ -321,13 +337,15 @@ def solve_fused_multi(
     (`multi.multi_admm_step`), the JAX package's production serving path.
     ``axis_name``: the process group the robots are sharded over (this
     rank's robots in ``state``; the step's collectives run inside the loop,
-    and inside the CUDA graph on the card); ``interact`` and ``groups`` as
+    and inside the CUDA graph on the card, in the form `fused_form` picks);
+    ``interact`` and ``groups`` as
     in `multi.multi_admm_step` (`solve_fused_batch`,
     `solve_fused_batch_multi`).  Returns (state, iterations_run,
     final_gnorm)."""
     step = fused_step(consts, cfg, scene, coupled, axis_name=axis_name, interact=interact,
                       groups=groups)
-    (state,), it, gnorm = graph.run_fused(step, (state,), max_iters, cfg.stop)
+    (state,), it, gnorm = graph.run_fused(step, (state,), max_iters, cfg.stop,
+                                          form=fused_form(state.spline.device, axis_name))
     return state, it, gnorm
 
 
@@ -348,7 +366,8 @@ def solve_fused_multi_cached(
     final_gnorm, caches)."""
     (state, caches), it, gnorm = graph.run_fused(
         fused_step(consts, cfg, scene, coupled, cached=True, axis_name=axis_name),
-        (state, tuple(caches)), max_iters, cfg.stop)
+        (state, tuple(caches)), max_iters, cfg.stop,
+        form=fused_form(state.spline.device, axis_name))
     return state, it, gnorm, caches
 
 

@@ -4,12 +4,13 @@ Port of `trajopt_tpu/solver/multi.py`.  The robot axis U is a batch axis
 written out: the per-robot gradients, Hessians, KKT systems, slack updates
 and CCD tables of the whole fleet go through each op (and each kernel) in
 one call.  Every `lax.cond` of its step is a `runtime.graph.device_cond` (a
-Python branch, i.e. a host sync, in the host-stepped drivers; both sides
-and a select in the fused drivers' CUDA graph): the live-pair gates of the
+Python branch, i.e. a host sync, in the host-stepped drivers; an IF node
+in the fused drivers' CUDA graph): the live-pair gates of the
 obstacle and pair planes, the plateau and GJK gates of both CCDs, the GJK
 gate of each decoupled shrink round, and the coupled Armijo's step0 tests.
-The decoupled shrink `while_loop` is `graph.fixed_rounds`, at most
-``max_line_search`` guarded rounds.
+The decoupled shrink `while_loop` is `graph.fixed_rounds` (a WHILE node in
+the graph), at most ``max_line_search`` rounds, ending at the first round
+in which every robot is certified.
 
 Cross-robot coupling goes through four collectives, each taking
 ``axis_name``: a `torch.distributed` process group over which the robots
