@@ -96,6 +96,14 @@ Phases, each reported on its own lines with the seconds it took:
    host-stepped solve's, and device busy and idle share over one whole
    solve of each form, captured again and launched after
    `torch.cuda.empty_cache` (bit-equal: the graph owns what it reads);
+   the graph cache (`runtime/cache.py`): after each conditional call two
+   more, from the start moved by 1e-7 (bench.py's perturbation) and from
+   the first start, each a hit (1 launch, 2 host syncs, warm-up, capture
+   and instantiation 0), the last bit-equal to the first call and to the
+   host-stepped solve, the first call's result untouched; whole-call ms
+   per iteration of the miss and the hits, each entry's pool bytes and
+   the peak memory of the miss; the hits again after
+   `torch.cuda.empty_cache`;
 7. scenario batches and sharding: `solve_fused_batch` at bench_scale.py's
    batches of 16 and 1024 jittered bridge scenarios (2000 points, P=4, 50
    iterations), three of the 16 against their own `solve_fused`, every
@@ -107,10 +115,12 @@ Phases, each reported on its own lines with the seconds it took:
    K2 cross-checked by K5; each with warm-up and capture ms, launch ms per
    iteration, scenario-iterations per second, kernel nodes per capture and
    their executions, and the solve captured again and launched after
-   `torch.cuda.empty_cache`, bit-equal (no profiler: `log_batch_run`);
+   `torch.cuda.empty_cache`, bit-equal (no profiler: `log_batch_run`); a
+   cache hit of the 16 with new jitter, bit-equal to a fresh capture;
    then sharding on a single-rank NCCL
    group: the 64-robot cross's sharded step (3 steps, both modes) and
    `solve_fused_multi(axis_name=...)` bit-equal to the unsharded ones,
+   and its cache hit from a moved start bit-equal to a fresh capture,
    the 2-D mesh step, the scenario-sharded solver, and
    ``torchrun --nproc-per-node 1 ... cli.multi --mesh-devices 1`` against
    the unsharded CLI;
@@ -138,6 +148,9 @@ Phases, each reported on its own lines with the seconds it took:
    K2 and the fused K3 + K4 launch (and K6 under "eigh") launched in the
    probe step, none in the oracle.
 
+Each phase that runs fused drivers ends with `cache.clear()`, so that no
+phase holds the graph cache's pools of another.
+
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failed check raises,
 so the exit code is non-zero and the last line is not printed.  Imports no
@@ -150,6 +163,13 @@ DIR's port on this checkout's inputs (a K5 that takes m <= 64 only reads
 "refused" at the larger shapes), with a digest of each Cholesky and
 eigenvalue output (to compare two commits on one card, in time and bit for
 bit: parent, change, change, parent in one call).
+
+    python3 chip_smoke.py --time-calls DIR [--out FILE]
+
+times four whole calls of each of phase 6's five fused drivers by the
+checkout DIR's port (from the start, the moved start, the start again, and
+once more after `cache.clear()`; `time_fused_calls`), to compare the graph
+cache's hits and misses with a port that captures at every call.
 """
 
 from __future__ import annotations
@@ -2084,6 +2104,58 @@ def solve_busy(cap):
     return device_busy_share(solve, 1)
 
 
+def moved_start(state, eps=1e-7):
+    """``state`` with its spline moved by ``eps``, as bench.py:201-205 moves
+    the start of each timed call."""
+    return state._replace(spline=state.spline + eps)
+
+
+def check_cache_hits(key, solve, state0, first, want, log):
+    """The graph cache (`runtime/cache.py`) behind a fused driver whose
+    first call ``first`` (its row: state, it, wall_ms) missed: ``solve(start)
+    -> (state, it, gnorm)`` called twice more under `graph.counting`, from
+    `moved_start` and from ``state0`` again.  Each must hit: 1 graph launch,
+    2 host syncs (the final reads), warm-up, capture and instantiation 0.
+    The second's state must equal the first call's and ``want`` (the
+    host-stepped solve's) bit for bit, and the first call's result must be
+    untouched.  Logs whole-call and launch ms per iteration of each."""
+    import torch
+    from trajopt_tpu_torch.runtime import graph
+
+    kept = [x.clone() for x in first["state"]]
+    for name, start in (("moved start", moved_start(state0)), ("first start", state0)):
+        out = {}
+
+        def call():
+            state, it, gnorm = solve(start)
+            out.update(state=state, it=int(it), gnorm=float(gnorm))
+
+        t0 = time.perf_counter()
+        with graph.counting():
+            syncs = sum(count_syncs(call, outside=True).values())
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        run = graph.LAST_RUN
+        it = out["it"]
+        log(f"    cache hit from the {name}: {it} iterations, hit {run.hit}, {run.replays} "
+            f"launch(es), {syncs} host syncs, warm-up {run.warmup_ms} + capture "
+            f"{run.capture_ms} + instantiate {run.instantiate_ms} ms; launch "
+            f"{run.replay_ms / max(it, 1):.3f} ms/iter, whole call {wall_ms:.1f} ms = "
+            f"{wall_ms / max(it, 1):.3f} ms/iter (the miss: {first['wall_ms'] / first['it']:.3f})")
+        check(run.hit, f"{key} from the {name}: the graph cache missed")
+        check(run.replays == 1, f"{key} from the {name}: {run.replays} graph launches, expected 1")
+        check(syncs == 2, f"{key} from the {name}: {syncs} host syncs, expected 2")
+        check(run.warmup_ms == run.capture_ms == run.instantiate_ms == 0.0,
+              f"{key} from the {name}: a hit warmed up or captured")
+    same = (equal_trees(out["state"], first["state"]) and out["it"] == first["it"]
+            and equal_trees(out["state"], want))
+    untouched = equal_trees(first["state"], type(first["state"])(*kept))
+    log(f"    the hit from the first start bit-equal to the miss and the host-stepped solve: "
+        f"{same}; the miss's result untouched by the hits: {untouched}")
+    check(same, f"{key}: the cache hit from the first start differs from the miss")
+    check(untouched, f"{key}: a cache hit overwrote the first call's result")
+
+
 def fused_phase(device, cases, host_rows, launches, by_shape, log, select=True):
     """Phases 6 and 8: the fused driver of each of ``cases`` (`SolveCase`)
     on the card at full width, in the conditional form (the drivers'
@@ -2108,16 +2180,18 @@ def fused_phase(device, cases, host_rows, launches, by_shape, log, select=True):
     (phase 6) each form's solve captured again and launched once under
     torch.profiler for device busy ms and idle share over one whole solve
     (`solve_busy`; phase 8 leaves the profiler out, see `log_batch_run`);
-    last every conditional capture launched again after
-    `torch.cuda.empty_cache`, bit-equal to the host-stepped state
-    (`relaunch_after_empty_cache`).  Returns the rows, with the final
-    states."""
+    after each conditional call two cache hits (`check_cache_hits`), with
+    the miss's pool bytes and peak memory; last every conditional capture
+    launched again after `torch.cuda.empty_cache`, and every driver called
+    again (a hit), each bit-equal to the host-stepped state
+    (`relaunch_after_empty_cache`); the cache cleared.  Returns the rows,
+    with the final states."""
     import torch
     from trajopt_tpu_torch.ops import _cuda
-    from trajopt_tpu_torch.runtime import graph
+    from trajopt_tpu_torch.runtime import cache, graph
     from trajopt_tpu_torch.solver import driver
 
-    fused_rows, held = {}, []
+    fused_rows, held, calls = {}, [], []
     for case in cases:
         cfg, ops, cloud, consts, scene, state0 = case.build(device)
         coupled = case.coupled
@@ -2139,11 +2213,13 @@ def fused_phase(device, cases, host_rows, launches, by_shape, log, select=True):
 
             key = f"{case.label} fused" + ("" if form == "conditional" else " select")
             _cuda.reset_launches()
+            torch.cuda.reset_peak_memory_stats(device)
             t0 = time.perf_counter()
             with graph.counting():
                 syncs = count_syncs(solve, outside=True)
             wall_ms = (time.perf_counter() - t0) * 1e3
             torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(device)
             launches[key], by_shape[key] = dict(_cuda.LAUNCHES), shape_counts()
             run = graph.LAST_RUN
             check(run.form == form, f"{key}: ran in the {run.form} form")
@@ -2159,9 +2235,12 @@ def fused_phase(device, cases, host_rows, launches, by_shape, log, select=True):
                 f"solve's: {same}")
             log(f"    replay {run.replay_ms:.3f} ms = {run.replay_ms / max(it, 1):.3f} ms/iter; "
                 f"whole call {wall_ms:.1f} ms = {wall_ms / max(it, 1):.3f} ms/iter; warm-up "
-                f"{run.warmup_ms:.1f} ms, capture {run.capture_ms:.1f} ms; host-stepped median "
+                f"{run.warmup_ms:.1f} ms, capture {run.capture_ms:.1f} ms, instantiate "
+                f"{run.instantiate_ms:.1f} ms; host-stepped median "
                 f"{host['median_iter_ms']:.3f} ms/iter, mean "
                 f"{host['solve_s'] * 1e3 / host['iters']:.3f}")
+            log(f"    graph pool {run.pool_bytes} bytes; peak allocated in the call {peak} bytes; "
+                f"cache hit {run.hit}")
             cap = graph.capture(step, _fused_carry(consts, cfg, state0), max_iters, cfg.stop, form)
             if select:
                 busy, busy_wall = solve_busy(cap)
@@ -2204,6 +2283,12 @@ def fused_phase(device, cases, host_rows, launches, by_shape, log, select=True):
                        "converged": it < max_iters and out["gnorm"] < cfg.stop, **quality}
                 fused_rows[case.label] = dict(row, state=state)
                 check_solution(key, case, row, cfg, consts, state, log)
+                check(not run.hit, f"{key}: the first call hit the graph cache")
+                solve_cached = (lambda start, c=consts, g=cfg, sc=scene, cp=coupled, n=max_iters:
+                                _fused_solve(c, g, sc, start, cp, n))
+                check_cache_hits(key, solve_cached, state0, dict(out, wall_ms=wall_ms),
+                                 host["state"], log)
+                calls.append((key, lambda f=solve_cached, s=state0: f(s)[0], host["state"]))
         if not select:
             continue
         c, s_ = forms["conditional"], forms["select"]
@@ -2216,7 +2301,8 @@ def fused_phase(device, cases, host_rows, launches, by_shape, log, select=True):
             f"(select extra {(s_['busy'] - c['busy']) / c['it']:.3f} ms/iter), idle share "
             f"{1 - c['busy'] / c['busy_wall']:.3f} / {1 - s_['busy'] / s_['busy_wall']:.3f}; "
             f"bit-equal")
-    relaunch_after_empty_cache(held, log)
+    relaunch_after_empty_cache(held, log, calls)
+    cache.clear()
     return fused_rows
 
 
@@ -2342,7 +2428,8 @@ def log_batch_run(label, b, it, wall_ms, run, log):
     Phase 6's five profiled solves stay below that; phases 7-8 relaunch
     their solves unprofiled (`relaunch_after_empty_cache`)."""
     log(f"  {label}: {it} iterations of {b} scenarios; warm-up {run.warmup_ms:.1f} + capture "
-        f"{run.capture_ms:.1f} ms, {run.replays} launch {run.replay_ms:.1f} ms = "
+        f"{run.capture_ms:.1f} + instantiate {run.instantiate_ms:.1f} ms (graph pool "
+        f"{run.pool_bytes} bytes), {run.replays} launch {run.replay_ms:.1f} ms = "
         f"{run.replay_ms / max(it, 1):.3f} ms/iter, {b * it / (run.replay_ms / 1e3):.1f} "
         f"scenario-iterations/s over the launch ({b * it / (wall_ms / 1e3):.1f} over the whole "
         f"call of {wall_ms:.1f} ms)")
@@ -2351,7 +2438,7 @@ def log_batch_run(label, b, it, wall_ms, run, log):
         + ", ".join(f"{k} {v} / {execs.get(k, 0)}" for k, v in run.kernel_nodes.items()))
 
 
-def relaunch_after_empty_cache(held, log):
+def relaunch_after_empty_cache(held, log, calls=()):
     """Each captured solve of ``held`` ((label, conditional-form
     `graph.Captured`, the state it must end in, its step)) launched with no
     profiler after one `torch.cuda.empty_cache` has returned every free
@@ -2359,9 +2446,14 @@ def relaunch_after_empty_cache(held, log):
     bit for bit: a graph that read memory it does not own (such as a block
     the shared pool freed after the capture) faults or differs.  The step
     is held because its closure holds the constants and the scene the
-    graph reads.  Run at the end of a phase, since the emptied cache slows
-    the allocations after it."""
+    graph reads.  Then each of ``calls`` ((label, a fused driver call
+    returning its state, the state it must end in)), made under
+    `graph.counting` as the phases' first calls are, which must hit the
+    graph cache (`runtime/cache.py`), held to it in the same way.  Run at
+    the end of a phase, since the emptied cache slows the allocations
+    after it."""
     import torch
+    from trajopt_tpu_torch.runtime import graph
 
     torch.cuda.empty_cache()
     for label, cap, want, _step in held:
@@ -2369,9 +2461,45 @@ def relaunch_after_empty_cache(held, log):
         torch.cuda.synchronize()
         check(equal_trees(cap.carry[0], want), f"{label}: the solve launched after "
                                                "torch.cuda.empty_cache differs")
+    for label, call, want in calls:
+        with graph.counting():
+            got = call()
+        torch.cuda.synchronize()
+        check(graph.LAST_RUN.hit, f"{label}: the call after torch.cuda.empty_cache missed the "
+                                  "graph cache")
+        check(equal_trees(got, want), f"{label}: the cache hit after torch.cuda.empty_cache "
+                                      "differs")
     log(f"  relaunched after torch.cuda.empty_cache, each bit-equal: "
-        f"{', '.join(entry[0] for entry in held)}")
+        f"{', '.join(entry[0] for entry in held)}"
+        + "".join(f"; cache hit {label}" for label, _, _ in calls))
     held.clear()
+
+
+def check_hit_against_fresh(label, solve, start, step, max_iters, stop, log):
+    """``solve(start) -> (state, it, gnorm)``, a fused driver call of a
+    key that an earlier call under `graph.counting` captured, which must
+    hit the graph cache (1 launch, no warm-up or capture), held bit for bit
+    to a fresh capture of ``step`` from ``start`` (uncached
+    `graph.run_fused`)."""
+    import torch
+    from trajopt_tpu_torch.runtime import graph
+
+    t0 = time.perf_counter()
+    with graph.counting():
+        got, it, _ = solve(start)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    run = graph.LAST_RUN
+    it = int(it)
+    (fresh,), fresh_it, _ = graph.run_fused(step, (start,), max_iters, stop)
+    same = equal_trees(got, fresh) and it == int(fresh_it)
+    log(f"  {label} cache hit: hit {run.hit}, {run.replays} launch(es), warm-up "
+        f"{run.warmup_ms} + capture {run.capture_ms} ms, {it} iterations, launch "
+        f"{run.replay_ms / max(it, 1):.3f} ms/iter, whole call {wall_ms:.1f} ms; bit-equal to a "
+        f"fresh capture: {same}")
+    check(run.hit and run.replays == 1 and run.warmup_ms == run.capture_ms == 0.0,
+          f"{label}: the second call did not hit the graph cache")
+    check(same, f"{label}: the cache hit differs from a fresh capture")
 
 
 def max_diff(a, b):
@@ -2394,7 +2522,7 @@ def batch_single_phase(device, launches, by_shape, log):
     import numpy as np
     import torch
     from trajopt_tpu_torch import types as tt
-    from trajopt_tpu_torch.runtime import graph
+    from trajopt_tpu_torch.runtime import cache, graph
     from trajopt_tpu_torch.solver import driver
 
     held = []
@@ -2413,6 +2541,14 @@ def batch_single_phase(device, launches, by_shape, log):
         held.append((label, graph.capture(step, (states,), BATCH_ITERS, cfg.stop), out, step))
         log(f"    launches {launches[label]}")
         log(f"    launches by call shape: {by_shape[label]}")
+        if b == BATCH_SIZES[0]:
+            noise = np.random.default_rng(1).normal(scale=1e-3, size=tuple(states.spline.shape))
+            other = states._replace(spline=states.spline + torch.as_tensor(
+                noise, dtype=states.spline.dtype, device=device))
+            check_hit_against_fresh(
+                f"{label} from new jitter",
+                lambda s: driver.solve_fused_batch(consts, cfg, s, scene, max_iters=BATCH_ITERS),
+                other, step, BATCH_ITERS, cfg.stop, log)
         overflow = first_step_overflow(consts, cfg, states, scene, coupled=False, interact=False)
         log(f"    plane budget overflow in the first step: {overflow}; mean gnorm {float(gnorm):.4g}")
         if b == BATCH_SIZES[0]:
@@ -2463,6 +2599,7 @@ def batch_single_phase(device, launches, by_shape, log):
         f"{cfg.offset}); case {time.perf_counter() - t0:.1f} s")
     check(bool((clr >= cfg.offset).all()), f"{label}: a scenario's clearance is below offset")
     relaunch_after_empty_cache(held, log)
+    cache.clear()
 
 
 def fleet_batch_phase(device, launches, by_shape, log):
@@ -2474,7 +2611,7 @@ def fleet_batch_phase(device, launches, by_shape, log):
     import torch
     from trajopt_tpu_torch import types as tt
     from trajopt_tpu_torch.ops import _cuda
-    from trajopt_tpu_torch.runtime import graph
+    from trajopt_tpu_torch.runtime import cache, graph
     from trajopt_tpu_torch.solver import driver
 
     held = []
@@ -2519,6 +2656,7 @@ def fleet_batch_phase(device, launches, by_shape, log):
         check(quality["min_clearance"] >= cfg.offset, f"{label}: clearance below offset")
         check(bool((out.piece_time > 0).all()), f"{label}: a piece time is not positive")
     relaunch_after_empty_cache(held, log)
+    cache.clear()
 
 
 def equal_trees(a, b):
@@ -2545,6 +2683,7 @@ def sharding_phase(device, fused_rows, launches, by_shape, log):
     from trajopt_tpu_torch import types as tt
     from trajopt_tpu_torch.ops import _cuda
     from trajopt_tpu_torch.parallel import sharded
+    from trajopt_tpu_torch.runtime import cache
     from trajopt_tpu_torch.scenes import generators as gen
     from trajopt_tpu_torch.solver import driver, multi
 
@@ -2589,6 +2728,12 @@ def sharding_phase(device, fused_rows, launches, by_shape, log):
             f"{run.kernel_nodes}")
         check(int(it) == ref["iters"], f"{label}: {int(it)} iterations, phase 6 took {ref['iters']}")
         check(same, f"{label}: the final state differs from phase 6's")
+        check_hit_against_fresh(
+            f"{label} from the moved start",
+            lambda s: driver.solve_fused_multi(consts, cfg, s, scene, True,
+                                               max_iters=FLEET_MAX_ITERS, axis_name=group),
+            moved_start(state0), driver.fused_step(consts, cfg, scene, True, axis_name=group),
+            FLEET_MAX_ITERS, cfg.stop, log)
 
         label = f"2-D mesh (1, 1), 2 scenarios of u{FLEET}"
         mesh2 = sharded.make_mesh_2d(1, 1)
@@ -2628,6 +2773,7 @@ def sharding_phase(device, fused_rows, launches, by_shape, log):
         check(same, f"{label}: differs from the per-scenario solves")
         check_path_launches(label, launches[label], FUSED_KERNELS, ("eigvalsh",))
     finally:
+        cache.clear()       # its keys hold the group
         dist.destroy_process_group()
 
     # the CLI under torchrun, one process, against the unsharded CLI
@@ -2735,7 +2881,7 @@ def psd_batch(device, method, launches, by_shape, log):
     BATCH_MATCH_TOL of their own `solve_fused`, every scenario's clearance
     >= offset; last the solve relaunched after `torch.cuda.empty_cache`."""
     from trajopt_tpu_torch import types as tt
-    from trajopt_tpu_torch.runtime import graph
+    from trajopt_tpu_torch.runtime import cache, graph
     from trajopt_tpu_torch.solver import driver
 
     cfg, ops, cloud, consts, scene, states = build_batch(PSD_BATCH, device)
@@ -2764,6 +2910,7 @@ def psd_batch(device, method, launches, by_shape, log):
         f"{cfg.offset}), mean gnorm {float(gnorm):.4g}")
     check(bool((clr >= cfg.offset).all()), f"{label}: a scenario's clearance is below offset")
     relaunch_after_empty_cache(held, log)
+    cache.clear()
 
 
 def psd_sharded(device, fused_state, launches, by_shape, log):
@@ -2773,6 +2920,7 @@ def psd_sharded(device, fused_state, launches, by_shape, log):
     import torch
     import torch.distributed as dist
     from trajopt_tpu_torch.parallel import sharded
+    from trajopt_tpu_torch.runtime import cache
     from trajopt_tpu_torch.solver import driver
 
     mesh = sharded.make_mesh(1)
@@ -2792,6 +2940,7 @@ def psd_sharded(device, fused_state, launches, by_shape, log):
             f"{run.replay_ms / max(int(it), 1):.3f} ms/iter")
         check(same, f"{label}: the final state differs from the unsharded fused solve's")
     finally:
+        cache.clear()       # its keys hold the group
         dist.destroy_process_group()
 
 
@@ -3496,6 +3645,65 @@ def time_other_port(port, out_path):
     return 0
 
 
+def time_fused_calls(port, out_path):
+    """``--time-calls``: four whole calls of each of phase 6's fused solves
+    (`fused_cases`, full size) by the port in checkout ``port``: from the
+    start, from `moved_start`, from the start again, and from the start
+    after `cache.clear()` (where ``port`` has the graph cache: a miss with
+    no other graph held).  Each call's row: its
+    whole-call ms (the 2 final reads included), launch ms (`graph.LAST_RUN`),
+    iterations, warm-up, capture and instantiation ms, graph pool bytes and
+    whether it hit the graph cache (None where ``port`` has no such
+    field).  One short call of another key first pays the process's
+    first-capture costs.  Written as one JSON object to ``out_path``
+    (stdout if None).  To compare two commits on one card, run parent,
+    change, change, parent in one call."""
+    import torch
+
+    sys.path.insert(0, os.path.abspath(port))
+    import trajopt_tpu_torch
+    from trajopt_tpu_torch.runtime import graph
+
+    try:
+        from trajopt_tpu_torch.runtime import cache
+    except ImportError:             # a port that captures at every call
+        cache = None
+    device = torch.device("cuda", 0)
+    rows = []
+    for i, case in enumerate(fused_cases()):
+        cfg, _, _, consts, scene, state0 = case.build(device)
+        max_iters = MAX_ITERS if case.coupled is None else FLEET_MAX_ITERS
+        if i == 0:
+            _fused_solve(consts, cfg, scene, state0, case.coupled, 2)
+        calls = []
+        for n, start in enumerate((state0, moved_start(state0), state0, state0)):
+            if n == 3 and cache is not None:
+                cache.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, it, gnorm = _fused_solve(consts, cfg, scene, start, case.coupled, max_iters)
+            it, gnorm = int(it), float(gnorm)
+            whole_ms = (time.perf_counter() - t0) * 1e3
+            run = graph.LAST_RUN
+            calls.append({"iters": it, "whole_ms": whole_ms, "launch_ms": run.replay_ms,
+                          "warmup_ms": run.warmup_ms, "capture_ms": run.capture_ms,
+                          **{key: getattr(run, key, None)
+                             for key in ("instantiate_ms", "pool_bytes", "hit")}})
+        rows.append({"case": case.label, "calls": calls})
+        print(f"{case.label}: " + "; ".join(
+            f"{c['iters']} it, whole {c['whole_ms'] / c['iters']:.3f} ms/it, launch "
+            f"{c['launch_ms'] / c['iters']:.3f}, hit {c['hit']}" for c in calls),
+            file=sys.stderr, flush=True)
+    text = json.dumps({"package": os.path.dirname(trajopt_tpu_torch.__file__),
+                       "card": nvidia_smi_line(), "rows": rows})
+    if out_path is None:
+        print(text)
+    else:
+        with open(out_path, "w") as f:
+            f.write(text + "\n")
+    return 0
+
+
 def shape_counts(names=SOLVE_KERNELS + ("eigvalsh",)):
     """{kernel: {call shape: launches}} since the last reset of the counts."""
     from trajopt_tpu_torch.ops import _cuda
@@ -3516,7 +3724,11 @@ def main() -> int:
     ap.add_argument("--time-shapes", metavar="DIR",
                     help="only time the K1, K2, K5, K3, K4 and K6 of the checkout DIR at every "
                          "timed shape (this checkout's inputs) and print them as JSON")
-    ap.add_argument("--out", metavar="FILE", help="with --time-shapes: write the JSON to FILE")
+    ap.add_argument("--time-calls", metavar="DIR",
+                    help="only time four whole calls of each of phase 6's fused drivers by the "
+                         "checkout DIR's port and print them as JSON")
+    ap.add_argument("--out", metavar="FILE",
+                    help="with --time-shapes or --time-calls: write the JSON to FILE")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3527,6 +3739,8 @@ def main() -> int:
     sys.path.insert(0, HERE)
     if args.time_shapes:
         return time_other_port(args.time_shapes, args.out)
+    if args.time_calls:
+        return time_fused_calls(args.time_calls, args.out)
     from trajopt_tpu_torch.config import TrajOptConfig
     from trajopt_tpu_torch.ops import _cuda
 

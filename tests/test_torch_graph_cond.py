@@ -426,18 +426,20 @@ def test_fused_form_is_select_only_across_ranks_on_the_card(monkeypatch, device,
 
 @pytest.mark.parametrize("cached", [False, True])
 def test_sharded_fused_drivers_pass_the_form(monkeypatch, cached):
-    """`solve_fused_multi` and `solve_fused_multi_cached` hand run_fused
-    the form `driver.fused_form` picks for their state and group."""
+    """`solve_fused_multi` and `solve_fused_multi_cached` hand the graph
+    cache (`runtime.cache.run`, which runs `graph.run_fused`'s forms) the
+    form `driver.fused_form` picks for their state and group."""
     group, seen = object(), []
     state = type("State", (), {"spline": torch.zeros(1)})()
     monkeypatch.setattr(driver, "fused_form",
                         lambda device, axis: "select" if axis is group else None)
+    monkeypatch.setattr(driver.dist, "get_world_size", lambda g: 2)
 
-    def fake_run_fused(step, carry, max_iters, stop, form=None):
+    def fake_run(static, make_step, consts, scene, carry, max_iters, stop, form=None):
         seen.append(form)
         return carry, torch.tensor(0), torch.tensor(0.0)
 
-    monkeypatch.setattr(driver.graph, "run_fused", fake_run_fused)
+    monkeypatch.setattr(driver.cache, "run", fake_run)
     cfg = driver.TrajOptConfig()
     for axis in (group, None):
         if cached:

@@ -36,6 +36,13 @@ loop: guarded steps under the reference's stop rule ``(it < max_iters) &
   keeps it, to measure what the conditional form saves; the warm-up before
   every capture runs it, so that every op of both sides runs once before
   the capture.
+
+A captured solve (`Captured`) reads its start from input buffers of its
+own and the step's constants and scene at the addresses it was captured
+with, so it can be launched again after new values are copied into them.
+`run_fused` captures anew at each call, for callers that pass their own
+step; the fused drivers go through `runtime.cache`, which keeps one
+captured solve per key and launches it again (`launch`).
 """
 
 from __future__ import annotations
@@ -106,6 +113,11 @@ def counting():
         yield
     finally:
         _COUNTING.reset(token)
+
+
+def is_counting() -> bool:
+    """Whether a capture made now counts its nodes (inside `counting`)."""
+    return _COUNTING.get()
 
 
 def _tree_map(fn, *trees):
@@ -379,7 +391,13 @@ class FusedRun:
     the graph was captured: its kernel nodes, ``set_condition``'s included
     (select: each runs once per replay; conditional: 0 or more times a
     launch, see `executions`); empty on the CPU.  ``cond_nodes``: the IF and
-    WHILE nodes."""
+    WHILE nodes.  ``warmup_ms``, ``capture_ms`` and ``instantiate_ms``: the
+    graph's warm-up, capture and ``instantiate`` on the host clock;
+    ``pool_bytes``: the growth of ``torch.cuda.memory_reserved`` across the
+    capture and instantiation (the graph's private pool).  ``hit``: the
+    solve launched a graph that `runtime.cache` captured in an earlier call
+    (warm-up, capture and instantiation 0; ``replays`` and ``events`` this
+    call's, the rest the graph's)."""
 
     device: str
     form: str
@@ -395,6 +413,9 @@ class FusedRun:
     tallies: torch.Tensor | None = None
     bodies: list = dataclasses.field(default_factory=list)
     root_launches: dict = dataclasses.field(default_factory=dict)
+    instantiate_ms: float = 0.0
+    pool_bytes: int = 0
+    hit: bool = False
 
     @property
     def replay_ms(self) -> float:
@@ -410,7 +431,8 @@ class FusedRun:
         """{kernel wrapper: executions of its kernel nodes} in the last graph
         launch (select form: every replay), from the conditional nodes'
         tallies (a host read; the capture must have been made under
-        `counting`).  Empty on the CPU."""
+        `counting`).  The tallies are the graph's, so after a later launch
+        of the same graph they hold that launch's.  Empty on the CPU."""
         if self.form == "select":
             return {k: v * self.replays for k, v in self.kernel_nodes.items()}
         if self.device == "cpu":
@@ -496,9 +518,11 @@ class Captured:
     buffers) to its end; ``carry``, ``it`` and ``gnorm`` then hold the
     result.  Select form: one block of `STEPS_PER_REPLAY` steps over static
     buffers, which each replay advances, ``flag`` the loop condition after
-    it.  ``inputs`` holds the start state the graph reads.  It holds the
-    addresses of everything the step reads (scene, constants), so it lives
-    for one solve."""
+    it.  ``inputs`` holds the start state the graph reads, which `load`
+    replaces.  The graph also reads everything the step reads (scene,
+    constants) at the addresses it was captured with: whoever launches it
+    keeps those tensors alive and copies new values into them, as
+    `runtime.cache` does."""
 
     graph: torch.cuda.CUDAGraph
     form: str
@@ -509,6 +533,18 @@ class Captured:
     run: FusedRun
     inputs: tuple = ()
     launches: int = 0
+    max_iters: int = 0
+
+    def load(self, carry) -> None:
+        """Copy a new start ``carry`` into the input buffers, on the current
+        stream: the next solve starts from it.  Select form: also back to
+        iteration 0, gnorm +inf and the flag ``max_iters > 0``."""
+        start, it, gnorm = self.inputs
+        _tree_map(lambda buf, value: buf.copy_(value), start, carry)
+        if self.flag is not None:
+            it.zero_()
+            gnorm.fill_(float("inf"))
+            self.flag.fill_(self.max_iters > 0)
 
     def replay(self) -> bool:
         """Launch the graph once; True while the loop goes on (select form:
@@ -525,7 +561,8 @@ def capture_fn(fn: Callable, device: torch.device, form: str = "conditional",
     in the select form on that stream.  ``if_else``: in the conditional
     form, whether an IF node takes an ELSE body (None: where the CUDA
     runtime and driver have it; False: two IF nodes).  Returns (the graph,
-    instantiated; what ``fn`` returned; a `FusedRun` with no replay yet)."""
+    instantiated; what ``fn`` returned; a `FusedRun` with no replay yet,
+    its pool's bytes measured across the capture and instantiation)."""
     if form not in ("conditional", "select"):
         raise ValueError(f"capture: form is 'conditional' or 'select', got {form!r}")
     main = torch.cuda.current_stream(device)
@@ -542,6 +579,7 @@ def capture_fn(fn: Callable, device: torch.device, form: str = "conditional",
             with select_form():
                 warm()
         t1 = time.perf_counter()
+        reserved = torch.cuda.memory_reserved(device)
         pool = torch.cuda.graph_pool_handle()
         g = torch.cuda.CUDAGraph(keep_graph=True)
         before = dict(_cuda.LAUNCHES)
@@ -573,6 +611,8 @@ def capture_fn(fn: Callable, device: torch.device, form: str = "conditional",
         run.cond_nodes, run.versions, run.tallies = dict(nodes.counts), nodes.versions, tallies
         run.bodies, run.root_launches = nodes.records, {k: v for k, v in root.items() if v}
     g.instantiate()
+    run.instantiate_ms = (time.perf_counter() - t2) * 1e3
+    run.pool_bytes = torch.cuda.memory_reserved(device) - reserved
     return g, result, run
 
 
@@ -601,11 +641,43 @@ def capture(step: Callable, carry, max_iters: int, stop: float,
             return _solve_loop(_FORM.get(), step, static[0], max_iters, stop)
 
     g, (carry, it, gnorm), run = capture_fn(fn, device, form, warm=lambda: block(*static))
-    return Captured(g, form, carry, it, gnorm, flag, run, static)
+    return Captured(g, form, carry, it, gnorm, flag, run, static, max_iters=max_iters)
+
+
+def launch(cap: Captured, run: FusedRun) -> FusedRun:
+    """Run ``cap``'s solve from its input buffers on the current stream (the
+    conditional form's one launch between CUDA events; the select form's
+    replays until its flag reads false) and record this call's launches
+    and times in ``run``, which it returns."""
+    before = cap.launches
+    t0 = time.perf_counter()
+    if cap.form == "conditional":
+        events = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
+        events[0].record()
+        cap.replay()
+        events[1].record()
+        run.events = events
+    else:
+        while cap.replay():
+            pass
+    run.replays = cap.launches - before
+    run.host_ms = (time.perf_counter() - t0) * 1e3
+    return run
+
+
+def resolve_form(device: torch.device, form: str | None) -> str:
+    """`run_fused`'s ``form`` on ``device``: None is "conditional" on the
+    card and "branch" on the CPU."""
+    form = form or ("conditional" if device.type == "cuda" else "branch")
+    if form not in FORMS:
+        raise ValueError(f"run_fused: form is one of {FORMS}, got {form!r}")
+    return form
 
 
 def run_fused(step: Callable, carry, max_iters: int, stop: float, form: str | None = None):
-    """The fused drivers' loop.  ``step(carry) -> (carry, gnorm)`` advances
+    """The fused loop, captured anew at each call on the card (the fused
+    drivers keep one capture per key, `runtime.cache`).  ``step(carry) ->
+    (carry, gnorm)`` advances
     one iteration; ``carry`` is a tuple of tensors (and NamedTuples of
     them) on one device.  Returns (carry, iterations_run, final_gnorm),
     the last two 0-d tensors on that device, gnorm +inf in the carry's
@@ -619,26 +691,12 @@ def run_fused(step: Callable, carry, max_iters: int, stop: float, form: str | No
     "conditional" runs the loop on the nodes' stand-in (`EagerNodes`)."""
     global LAST_RUN
     leaf = _leaf(carry)
-    form = form or ("conditional" if leaf.device.type == "cuda" else "branch")
-    if form not in FORMS:
-        raise ValueError(f"run_fused: form is one of {FORMS}, got {form!r}")
+    form = resolve_form(leaf.device, form)
     if leaf.device.type == "cuda":
         if form == "branch":
             raise ValueError("run_fused: the branch form is the host-stepped drivers' on the card")
         cap = capture(step, carry, max_iters, stop, form)
-        t0 = time.perf_counter()
-        if form == "conditional":
-            events = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
-            events[0].record()
-            cap.replay()
-            events[1].record()
-            cap.run.events = events
-        else:
-            while cap.replay():
-                pass
-        cap.run.replays = cap.launches
-        cap.run.host_ms = (time.perf_counter() - t0) * 1e3
-        LAST_RUN = cap.run
+        LAST_RUN = launch(cap, cap.run)
         return cap.carry, cap.it, cap.gnorm
     t0 = time.perf_counter()
     if form == "conditional":
