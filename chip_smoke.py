@@ -1327,7 +1327,7 @@ def cond_probe(device, log, cases=COND_CASES):
     conditions the branch form read.  Returns the largest abs difference."""
     import torch
     from trajopt_tpu_torch.ops import cuda_cond
-    from trajopt_tpu_torch.runtime import graph
+    from trajopt_tpu_torch.runtime import graph, trace
 
     f32 = dict(device=device, dtype=torch.float32)
     CountingNodes = _counting_nodes()
@@ -1368,7 +1368,7 @@ def cond_probe(device, log, cases=COND_CASES):
         t0 = time.perf_counter()
         p = torch.zeros((), dtype=torch.bool, device=device)
         x, limit = torch.zeros(4, **f32), torch.zeros((), **f32)
-        with graph.counting():
+        with trace.on():
             g, out, run = graph.capture_fn(lambda: fns[case](p, x, limit), device,
                                            if_else=False if case == "if" else None)
         for pv, xv, lv in inputs[case]:
@@ -2113,14 +2113,14 @@ def moved_start(state, eps=1e-7):
 def check_cache_hits(key, solve, state0, first, want, log):
     """The graph cache (`runtime/cache.py`) behind a fused driver whose
     first call ``first`` (its row: state, it, wall_ms) missed: ``solve(start)
-    -> (state, it, gnorm)`` called twice more under `graph.counting`, from
+    -> (state, it, gnorm)`` called twice more under `trace.on`, from
     `moved_start` and from ``state0`` again.  Each must hit: 1 graph launch,
     2 host syncs (the final reads), warm-up, capture and instantiation 0.
     The second's state must equal the first call's and ``want`` (the
     host-stepped solve's) bit for bit, and the first call's result must be
     untouched.  Logs whole-call and launch ms per iteration of each."""
     import torch
-    from trajopt_tpu_torch.runtime import graph
+    from trajopt_tpu_torch.runtime import graph, trace
 
     kept = [x.clone() for x in first["state"]]
     for name, start in (("moved start", moved_start(state0)), ("first start", state0)):
@@ -2131,7 +2131,7 @@ def check_cache_hits(key, solve, state0, first, want, log):
             out.update(state=state, it=int(it), gnorm=float(gnorm))
 
         t0 = time.perf_counter()
-        with graph.counting():
+        with trace.on():
             syncs = sum(count_syncs(call, outside=True).values())
         wall_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
@@ -2188,7 +2188,7 @@ def fused_phase(device, cases, host_rows, launches, by_shape, log, select=True):
     with the final states."""
     import torch
     from trajopt_tpu_torch.ops import _cuda
-    from trajopt_tpu_torch.runtime import cache, graph
+    from trajopt_tpu_torch.runtime import cache, graph, trace
     from trajopt_tpu_torch.solver import driver
 
     fused_rows, held, calls = {}, [], []
@@ -2215,7 +2215,7 @@ def fused_phase(device, cases, host_rows, launches, by_shape, log, select=True):
             _cuda.reset_launches()
             torch.cuda.reset_peak_memory_stats(device)
             t0 = time.perf_counter()
-            with graph.counting():
+            with trace.on():
                 syncs = count_syncs(solve, outside=True)
             wall_ms = (time.perf_counter() - t0) * 1e3
             torch.cuda.synchronize()
@@ -2404,11 +2404,11 @@ def run_fused_path(label, solve, launches, by_shape, log, on_path=FUSED_KERNELS,
     launched.  Returns (result, wall ms, `graph.LAST_RUN`)."""
     import torch
     from trajopt_tpu_torch.ops import _cuda
-    from trajopt_tpu_torch.runtime import graph
+    from trajopt_tpu_torch.runtime import graph, trace
 
     _cuda.reset_launches()
     t0 = time.perf_counter()
-    with graph.counting():
+    with trace.on():
         out = solve()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
@@ -2448,12 +2448,12 @@ def relaunch_after_empty_cache(held, log, calls=()):
     is held because its closure holds the constants and the scene the
     graph reads.  Then each of ``calls`` ((label, a fused driver call
     returning its state, the state it must end in)), made under
-    `graph.counting` as the phases' first calls are, which must hit the
+    `trace.on` as the phases' first calls are, which must hit the
     graph cache (`runtime/cache.py`), held to it in the same way.  Run at
     the end of a phase, since the emptied cache slows the allocations
     after it."""
     import torch
-    from trajopt_tpu_torch.runtime import graph
+    from trajopt_tpu_torch.runtime import graph, trace
 
     torch.cuda.empty_cache()
     for label, cap, want, _step in held:
@@ -2462,7 +2462,7 @@ def relaunch_after_empty_cache(held, log, calls=()):
         check(equal_trees(cap.carry[0], want), f"{label}: the solve launched after "
                                                "torch.cuda.empty_cache differs")
     for label, call, want in calls:
-        with graph.counting():
+        with trace.on():
             got = call()
         torch.cuda.synchronize()
         check(graph.LAST_RUN.hit, f"{label}: the call after torch.cuda.empty_cache missed the "
@@ -2477,15 +2477,15 @@ def relaunch_after_empty_cache(held, log, calls=()):
 
 def check_hit_against_fresh(label, solve, start, step, max_iters, stop, log):
     """``solve(start) -> (state, it, gnorm)``, a fused driver call of a
-    key that an earlier call under `graph.counting` captured, which must
+    key that an earlier call under `trace.on` captured, which must
     hit the graph cache (1 launch, no warm-up or capture), held bit for bit
     to a fresh capture of ``step`` from ``start`` (uncached
     `graph.run_fused`)."""
     import torch
-    from trajopt_tpu_torch.runtime import graph
+    from trajopt_tpu_torch.runtime import graph, trace
 
     t0 = time.perf_counter()
-    with graph.counting():
+    with trace.on():
         got, it, _ = solve(start)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3

@@ -22,7 +22,7 @@ from trajopt_tpu_torch import config as tconfig
 from trajopt_tpu_torch import types as tt
 from trajopt_tpu_torch.ops import splines as sp
 from trajopt_tpu_torch.parallel import sharded
-from trajopt_tpu_torch.runtime import cache, graph
+from trajopt_tpu_torch.runtime import cache, graph, trace
 from trajopt_tpu_torch.scenes import generators as gen
 from trajopt_tpu_torch.solver import admm, driver, multi
 
@@ -246,7 +246,7 @@ def test_each_key_field_captures_again(field, monkeypatch):
     if field in FLEET_FIELDS:
         _fleet_call(field, monkeypatch)
     elif field == "counting":
-        with graph.counting():
+        with trace.on():
             _single_call()
     else:
         _single_call(field)

@@ -25,6 +25,14 @@
 // after the node, and `trajopt_capture_body` / `trajopt_end_body` capture a
 // second stream into one of the node's body graphs.  Every entry point
 // returns its cudaError_t; none synchronizes.
+//
+// `trace_mark` is the tracing's mark between two phases of a captured step
+// (trajopt_tpu_torch/runtime/trace.py): one thread that writes a mark id and
+// the card's %globaltimer (ns) at the index a counter in device memory
+// holds, and advances it.  Past the buffer's capacity it writes nothing, so
+// the counter's excess is the marks dropped.  As a node of the graph it runs
+// after the node before it has finished, so consecutive marks bound the
+// device time of the work between them.
 
 #include <cuda_runtime.h>
 
@@ -39,6 +47,18 @@ __global__ void set_condition_kernel(cudaGraphConditionalHandle handle, const un
     if (tally != nullptr) {   // evaluations of the node, and times its body was taken
         tally[0] += 1;
         tally[1] += value;
+    }
+}
+
+__global__ void trace_mark_kernel(long long* marks, long long* head, long long capacity,
+                                  long long id) {
+    unsigned long long now;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+    const long long i = head[0];
+    head[0] = i + 1;
+    if (i < capacity) {
+        marks[2 * i] = id;
+        marks[2 * i + 1] = static_cast<long long>(now);
     }
 }
 
@@ -62,6 +82,14 @@ extern "C" int trajopt_set_condition(unsigned long long handle, const void* pred
     set_condition_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<cudaGraphConditionalHandle>(handle), static_cast<const unsigned char*>(pred),
         negate ? 1u : 0u, static_cast<long long*>(tally));
+    return static_cast<int>(cudaGetLastError());
+}
+
+// marks: int64 [capacity, 2] (id, ns); head: int64 [1], the next index.
+extern "C" int trajopt_mark(void* marks, void* head, long long capacity, long long id,
+                            void* stream) {
+    trace_mark_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<long long*>(marks), static_cast<long long*>(head), capacity, id);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -62,6 +62,7 @@ _SIGNATURES = {
     "trajopt_eigvalsh": [_vp, _vp, _int, _int, _vp],
     "trajopt_eig_probe": [_vp, _int, _vp],
     "trajopt_set_condition": [_u64, _vp, _int, _vp, _vp],
+    "trajopt_mark": [_vp, _vp, ctypes.c_longlong, ctypes.c_longlong, _vp],
     "trajopt_cond_probe": [_vp],
     "trajopt_cond_handle": [_vp, _vp, _vp],
     "trajopt_cond_node": [_vp, _u64, _int, _int, _vp],

@@ -17,6 +17,8 @@ The robot-pair CCD (`pair_max_step_direct` for the coupled step,
 the same scheme on (segment, partner robot) pairs.  Each `lax.cond` gate of
 the JAX package is a `runtime.graph.device_cond`: a Python branch (one host
 sync) in the host-stepped solve, an IF node of the CUDA graph in a fused one.
+Under the tracing switch `obstacle_max_step_direct` counts the segments
+whose level-1 limit is below the full step (`runtime.trace`).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..runtime import graph
+from ..runtime import graph, trace
 from . import cuda_topk
 from . import geometry as geo
 
@@ -87,6 +89,8 @@ def obstacle_max_step_direct(
     n_seg = b * p * r
     s0 = _level1(hull.reshape(n_seg, n, 3), dhull.reshape(n_seg, n, 3), points, pmask, offset)
     s_seg_min = s0.amin(dim=-1)                          # [S]
+    # segments levels 2-3 have work on (before the seg_budget cap)
+    trace.count("ccd_live_segments", lambda: (s_seg_min < 1.0).sum())
     # plateau regime: every (segment, point) limit certifies the full step
     s_b = graph.device_cond(
         s_seg_min.amin() >= 1.0,

@@ -16,12 +16,20 @@ set to a ``tally`` pair of int64 counters, if one is given: the node's
 evaluations and the times its body was taken, so that a run can count
 how often each body, and each kernel node in it, ran (`runtime.graph`'s
 `Captured.executions`).
+
+``mark`` is the tracing's mark between two phases of a captured step
+(`runtime.trace`): one thread writes a mark id and the card's
+``%globaltimer`` at the next index of a buffer.  It is a measurement aid,
+not one of the solve's kernels, so it is not counted in
+`_cuda.LAUNCHES`.  Plain version: the same write with the host's
+``perf_counter_ns``, which a CPU buffer takes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import time
 
 import torch
 
@@ -62,6 +70,36 @@ def set_condition(handle: int, pred: torch.Tensor, negate: bool = False,
                                             _cuda.stream())
     _cuda.check_launch(err, "set_condition")
     return None
+
+
+def mark_plain(marks: torch.Tensor, head: torch.Tensor, mark_id: int) -> None:
+    """``mark`` on the host: (``mark_id``, ``perf_counter_ns``) at row
+    ``head[0]`` of ``marks`` if it fits, and ``head[0]`` advanced."""
+    i = int(head[0])
+    head[0] = i + 1
+    if i < marks.shape[0]:
+        marks[i, 0], marks[i, 1] = mark_id, time.perf_counter_ns()
+
+
+def mark(marks: torch.Tensor, head: torch.Tensor, mark_id: int) -> None:
+    """Write (``mark_id``, the time in ns) at row ``head[0]`` of ``marks``
+    (int64 [capacity, 2], contiguous) when the launch runs, and advance
+    ``head`` (int64 [1]); a row past the capacity is not written, so
+    ``head[0] - capacity`` counts the marks dropped.  A CPU buffer takes
+    `mark_plain`; a CUDA one launches the kernel on the current stream."""
+    if (marks.dtype != torch.int64 or head.dtype != torch.int64 or marks.dim() != 2
+            or marks.shape[1] != 2 or not marks.is_contiguous() or head.shape != (1,)
+            or head.device != marks.device):
+        raise ValueError("mark: marks is a contiguous int64 [capacity, 2] tensor and head an "
+                         "int64 [1] tensor on its device")
+    if marks.device.type == "cpu":
+        mark_plain(marks, head, mark_id)
+        return
+    if marks.device.type != "cuda":
+        raise ValueError(f"mark: expected a CUDA (or CPU) tensor, got {marks.device}")
+    err = _cuda.lib().trajopt_mark(marks.data_ptr(), head.data_ptr(), marks.shape[0], mark_id,
+                                   _cuda.stream())
+    _cuda.check_error(err, "mark")
 
 
 @functools.cache

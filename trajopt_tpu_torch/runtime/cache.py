@@ -12,9 +12,9 @@ fused call with the same key launches the CUDA graph the first captured
   static arguments (the step kind, ``cfg`` with its ``stop``, ``coupled``,
   ``interact``, ``groups``, the process group ``axis_name`` by identity
   and its world size), ``max_iters``, the form the loop runs in
-  (`graph.resolve_form`), whether the capture counts its nodes
-  (`graph.counting`: a graph captured without tallies cannot answer
-  `FusedRun.executions`), and the shape, dtype and device of every tensor
+  (`graph.resolve_form`), whether tracing is on (`trace.on`: a graph
+  captured without it holds no marks, counters or tallies, and one
+  captured with it launches their kernels), and the shape, dtype and device of every tensor
   leaf of the constants, the scene and the start carry.  Never a value.
 - **An entry owns its inputs.**  On a miss it copies the constants, the
   scene and the carry into buffers of its own and builds the step over
@@ -38,6 +38,10 @@ fused call with the same key launches the CUDA graph the first captured
   one process and cannot be serialised; what does persist, the kernels'
   build, is cached on disk in `trajopt_tpu_torch/_build/` (`ops/_cuda.py`).
 
+A call's host work is traced (`runtime.trace`) as the spans
+``trajopt.cache.key``, ``trajopt.cache.load`` and ``trajopt.cache.clone``
+around the key, the copies in and the clones out.
+
 On the CPU an entry runs the loop eagerly (`graph.run_fused` in the form
 the key names) over its own buffers, so the key, the copies, the clones,
 the order and `clear` are the card's.  Nothing gives way quietly: another
@@ -52,7 +56,7 @@ from typing import Callable
 
 import torch
 
-from . import graph
+from . import graph, trace
 
 # Entries kept, least recently used dropped first (see the docstring).
 MAX_ENTRIES = 8
@@ -96,21 +100,25 @@ class _Entry:
     def solve(self, consts, scene, carry, hit: bool):
         """Load the caller's values, run the solve, return clones of its
         (carry, iterations, gnorm); sets `graph.LAST_RUN`."""
-        _load(self.consts, consts)
-        _load(self.scene, scene)
+        with trace.span("trajopt.cache.load"):
+            _load(self.consts, consts)
+            _load(self.scene, scene)
+            if self.cap is None:
+                _load(self.carry, carry)
+            else:
+                self.cap.load(carry)
         if self.cap is None:
-            _load(self.carry, carry)
             out = graph.run_fused(self.step, self.carry, self.max_iters, self.stop, self.form)
             graph.LAST_RUN.hit = hit
         else:
-            self.cap.load(carry)
             run = self.cap.run
             if hit:
                 run = dataclasses.replace(run, hit=True, warmup_ms=0.0, capture_ms=0.0,
                                           instantiate_ms=0.0)
             graph.LAST_RUN = graph.launch(self.cap, run)
             out = self.cap.carry, self.cap.it, self.cap.gnorm
-        return graph._tree_map(torch.clone, out)
+        with trace.span("trajopt.cache.clone"):
+            return graph._tree_map(torch.clone, out)
 
 
 def run(static: tuple, make_step: Callable, consts, scene, carry, max_iters: int, stop: float,
@@ -120,11 +128,12 @@ def run(static: tuple, make_step: Callable, consts, scene, carry, max_iters: int
     ``static``: the driver's static arguments, hashable (see the module
     docstring); ``stop`` is ``static``'s ``cfg.stop``.  Returns (carry,
     iterations_run, final_gnorm), fresh tensors."""
-    device = graph._leaf(carry).device
-    form = graph.resolve_form(device, form)
-    key = (static, max_iters, form, graph.is_counting(), device, _signature(consts),
-           _signature(scene), _signature(carry))
-    entry = _ENTRIES.get(key)
+    with trace.span("trajopt.cache.key"):
+        device = graph._leaf(carry).device
+        form = graph.resolve_form(device, form)
+        key = (static, max_iters, form, trace.is_on(), device, _signature(consts),
+               _signature(scene), _signature(carry))
+        entry = _ENTRIES.get(key)
     if entry is not None:
         _ENTRIES.move_to_end(key)
         return entry.solve(consts, scene, carry, hit=True)

@@ -43,6 +43,12 @@ with, so it can be launched again after new values are copied into them.
 `run_fused` captures anew at each call, for callers that pass their own
 step; the fused drivers go through `runtime.cache`, which keeps one
 captured solve per key and launches it again (`launch`).
+
+Under the tracing switch (`runtime.trace.on`) a capture in the conditional
+form also holds the marks and counters of `runtime.trace` as kernel nodes
+writing into a buffer of its own (`DeviceRecorder`) and the nodes' tallies
+(`FusedRun.executions`); `FusedRun.phases` and `FusedRun.counters` read
+them back after a launch.  On the CPU the marks read the host's clock.
 """
 
 from __future__ import annotations
@@ -51,12 +57,12 @@ import collections
 import contextlib
 import contextvars
 import dataclasses
-import time
 from typing import Callable
 
 import torch
 
 from ..ops import _cuda, cuda_cond
+from . import trace
 
 # Guarded steps per captured block of the select form.  Past convergence a
 # captured step still does its device work, and each step in a block costs
@@ -76,8 +82,6 @@ FORMS = ("branch", "conditional", "select")
 
 # None: the branch form; "select"; or the nodes of the conditional form.
 _FORM = contextvars.ContextVar("trajopt_graph_form", default=None)
-# Whether a conditional capture counts its nodes' evaluations (`counting`).
-_COUNTING = contextvars.ContextVar("trajopt_graph_counting", default=False)
 
 
 @contextlib.contextmanager
@@ -89,35 +93,18 @@ def _in_form(value):
         _FORM.reset(token)
 
 
+@contextlib.contextmanager
 def select_form():
     """Run every `device_cond` and `fixed_rounds` inside the block in the
-    select form."""
-    return _in_form("select")
+    select form, which records no trace mark or count."""
+    with _in_form("select"), trace.recording(None):
+        yield
 
 
 def conditional_form(nodes):
     """Run every `device_cond` and `fixed_rounds` inside the block in the
     conditional form, on ``nodes`` (`CudaNodes` or `EagerNodes`)."""
     return _in_form(nodes)
-
-
-@contextlib.contextmanager
-def counting():
-    """Inside the block, a capture in the conditional form also counts, on
-    the card, each node's evaluations and the times its condition was true
-    (each ``set_condition`` launch adds to an int64 tally), so that
-    `FusedRun.executions` can tell how often each kernel node ran.  A
-    measurement aid: a solve outside the block writes no tally."""
-    token = _COUNTING.set(True)
-    try:
-        yield
-    finally:
-        _COUNTING.reset(token)
-
-
-def is_counting() -> bool:
-    """Whether a capture made now counts its nodes (inside `counting`)."""
-    return _COUNTING.get()
 
 
 def _tree_map(fn, *trees):
@@ -382,6 +369,42 @@ def _body_streams(device: torch.device) -> list:
     return _BODY_STREAMS[device.index]
 
 
+class DeviceRecorder:
+    """A traced capture's marks and counters on the card (`runtime.trace`):
+    one int64 buffer holding the next mark's index, the `trace.COUNTERS`
+    and ``capacity`` (mark id, ``%globaltimer`` ns) pairs.  `reset` runs
+    at the graph's start, so each launch records its own; a mark past the
+    capacity is dropped and counted by the index running on.  Read it on
+    the host after the launch has ended."""
+
+    def __init__(self, device: torch.device, capacity: int):
+        self.capacity = capacity
+        n = len(trace.COUNTERS)
+        self.buf = torch.zeros(1 + n + 2 * capacity, dtype=torch.int64, device=device)
+        self._head, self._counters = self.buf[:1], self.buf[1:1 + n]
+        self._marks = self.buf[1 + n:].view(capacity, 2)
+
+    def reset(self) -> None:
+        self.buf[:1 + len(trace.COUNTERS)].zero_()
+
+    def mark(self, mark_id: int) -> None:
+        cuda_cond.mark(self._marks, self._head, mark_id)
+
+    def count(self, name: str, value) -> None:
+        row = self._counters[trace.COUNTERS.index(name)]
+        row.add_(value.to(torch.int64) if torch.is_tensor(value) else value)
+
+    def dropped(self) -> int:
+        return max(int(self._head) - self.capacity, 0)
+
+    def marks(self) -> list:
+        n = min(int(self._head), self.capacity)
+        return [tuple(m) for m in self._marks[:n].tolist()]
+
+    def counters(self) -> dict:
+        return dict(zip(trace.COUNTERS, self._counters.tolist()))
+
+
 @dataclasses.dataclass
 class FusedRun:
     """What the last `run_fused` call did.  ``form``: branch (the CPU),
@@ -397,7 +420,9 @@ class FusedRun:
     capture and instantiation (the graph's private pool).  ``hit``: the
     solve launched a graph that `runtime.cache` captured in an earlier call
     (warm-up, capture and instantiation 0; ``replays`` and ``events`` this
-    call's, the rest the graph's)."""
+    call's, the rest the graph's).  ``recorder``: where the solve's trace
+    marks and counts went (`DeviceRecorder`, or on the CPU a
+    `trace.HostRecorder`); None outside `trace.on` and in the select form."""
 
     device: str
     form: str
@@ -416,6 +441,7 @@ class FusedRun:
     instantiate_ms: float = 0.0
     pool_bytes: int = 0
     hit: bool = False
+    recorder: object = None
 
     @property
     def replay_ms(self) -> float:
@@ -431,14 +457,14 @@ class FusedRun:
         """{kernel wrapper: executions of its kernel nodes} in the last graph
         launch (select form: every replay), from the conditional nodes'
         tallies (a host read; the capture must have been made under
-        `counting`).  The tallies are the graph's, so after a later launch
+        `trace.on`).  The tallies are the graph's, so after a later launch
         of the same graph they hold that launch's.  Empty on the CPU."""
         if self.form == "select":
             return {k: v * self.replays for k, v in self.kernel_nodes.items()}
         if self.device == "cpu":
             return {}
         if self.tallies is None:
-            raise ValueError("executions: the graph was captured outside graph.counting()")
+            raise ValueError("executions: the graph was captured outside trace.on()")
         counts = self.tallies.cpu().tolist()
         out = collections.Counter(self.root_launches)
         for b in self.bodies:
@@ -450,11 +476,30 @@ class FusedRun:
 
     def set_condition_evaluations(self) -> int:
         """``set_condition`` executions in the last launch (a host read;
-        captured under `counting`)."""
+        captured under `trace.on`)."""
         if self.tallies is None:
             raise ValueError("set_condition_evaluations: the graph was captured outside "
-                             "graph.counting()")
+                             "trace.on()")
         return int(self.tallies[:, 0].sum())
+
+    def _traced(self):
+        if self.recorder is None:
+            raise ValueError("the solve ran outside trace.on() or in the select form: it "
+                             "recorded no trace")
+        return self.recorder
+
+    def phases(self) -> dict:
+        """{phase: ms summed over the solve} for each of `trace.PHASES` and
+        ``loop``, with ``iterations`` and the ``dropped`` marks
+        (`trace.phase_ms`; on the card device time between the marks, a
+        host read after the caller has synchronized)."""
+        recorder = self._traced()
+        return {**trace.phase_ms(recorder.marks()), "dropped": recorder.dropped()}
+
+    def counters(self) -> dict:
+        """{counter: total over the solve} of `trace.COUNTERS` (a host read
+        after the caller has synchronized)."""
+        return self._traced().counters()
 
 
 LAST_RUN: FusedRun | None = None
@@ -493,9 +538,13 @@ def _block(step: Callable, max_iters: int, stop: float) -> Callable:
 
 def _solve_loop(nodes, step: Callable, carry, max_iters: int, stop: float) -> tuple:
     """The whole loop in the conditional form on ``nodes``: one WHILE over
-    the counted step, from iteration 0 and gnorm +inf."""
-    return _while(nodes, lambda c, it, g: _active(it, g, max_iters, stop), _live(step),
-                  (carry, *_start(carry)))
+    the counted step, from iteration 0 and gnorm +inf, between the trace's
+    root marks."""
+    trace.phase("root")
+    out = _while(nodes, lambda c, it, g: _active(it, g, max_iters, stop), _live(step),
+                 (carry, *_start(carry)))
+    trace.phase("root")
+    return out
 
 
 def _leaf(tree) -> torch.Tensor:
@@ -555,52 +604,55 @@ class Captured:
 
 
 def capture_fn(fn: Callable, device: torch.device, form: str = "conditional",
-               warm: Callable | None = None, if_else: bool | None = None):
+               warm: Callable | None = None, if_else: bool | None = None, marks: int = 0):
     """``fn()`` captured in one CUDA graph on a side stream of ``device``, in
     ``form`` ("conditional" or "select"), after ``warm()`` (if given) ran
     in the select form on that stream.  ``if_else``: in the conditional
     form, whether an IF node takes an ELSE body (None: where the CUDA
-    runtime and driver have it; False: two IF nodes).  Returns (the graph,
-    instantiated; what ``fn`` returned; a `FusedRun` with no replay yet,
-    its pool's bytes measured across the capture and instantiation)."""
+    runtime and driver have it; False: two IF nodes).  ``marks``: the trace
+    marks a launch may record (a conditional capture under `trace.on`).
+    Returns (the graph, instantiated; what ``fn`` returned; a `FusedRun`
+    with no replay yet, its pool's bytes measured across the capture and
+    instantiation)."""
     if form not in ("conditional", "select"):
         raise ValueError(f"capture: form is 'conditional' or 'select', got {form!r}")
     main = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
-    nodes = tallies = None
+    nodes = tallies = recorder = None
     if form == "conditional":
         streams = _body_streams(device)
-        if _COUNTING.get():
+        if trace.is_on():
             tallies = torch.zeros((MAX_NODES, 2), dtype=torch.int64, device=device)
+            recorder = DeviceRecorder(device, marks)
     side.wait_stream(main)
-    t0 = time.perf_counter()
     with torch.cuda.stream(side):
-        if warm is not None:
-            with select_form():
-                warm()
-        t1 = time.perf_counter()
-        reserved = torch.cuda.memory_reserved(device)
-        pool = torch.cuda.graph_pool_handle()
-        g = torch.cuda.CUDAGraph(keep_graph=True)
-        before = dict(_cuda.LAUNCHES)
-        g.capture_begin(pool=pool)
-        try:
-            if form == "select":
+        with trace.timed("trajopt.graph.warmup") as warming:
+            if warm is not None:
                 with select_form():
-                    result = fn()
-            else:
-                if tallies is not None:
-                    tallies.zero_()
-                nodes = CudaNodes(device, pool, streams, tallies, if_else)
-                with conditional_form(nodes):
-                    result = fn()
-        finally:
-            g.capture_end()
-        t2 = time.perf_counter()
+                    warm()
+        with trace.timed("trajopt.graph.capture") as capturing:
+            reserved = torch.cuda.memory_reserved(device)
+            pool = torch.cuda.graph_pool_handle()
+            g = torch.cuda.CUDAGraph(keep_graph=True)
+            before = dict(_cuda.LAUNCHES)
+            g.capture_begin(pool=pool)
+            try:
+                if form == "select":
+                    with select_form():
+                        result = fn()
+                else:
+                    if tallies is not None:
+                        tallies.zero_()
+                        recorder.reset()
+                    nodes = CudaNodes(device, pool, streams, tallies, if_else)
+                    with conditional_form(nodes), trace.recording(recorder):
+                        result = fn()
+            finally:
+                g.capture_end()
     main.wait_stream(side)
     launched = {name: _cuda.LAUNCHES[name] - before[name] for name in before}
     run = FusedRun("cuda", form, STEPS_PER_REPLAY if form == "select" else None, 0, launched,
-                   (t1 - t0) * 1e3, (t2 - t1) * 1e3, 0.0)
+                   warming.ms, capturing.ms, 0.0, recorder=recorder)
     if nodes is not None:
         if nodes.root != g.raw_cuda_graph():
             raise RuntimeError("the conditional nodes were built in another graph than the one "
@@ -610,8 +662,9 @@ def capture_fn(fn: Callable, device: torch.device, form: str = "conditional",
             root.subtract(b.launches)
         run.cond_nodes, run.versions, run.tallies = dict(nodes.counts), nodes.versions, tallies
         run.bodies, run.root_launches = nodes.records, {k: v for k, v in root.items() if v}
-    g.instantiate()
-    run.instantiate_ms = (time.perf_counter() - t2) * 1e3
+    with trace.timed("trajopt.graph.instantiate") as instantiating:
+        g.instantiate()
+    run.instantiate_ms = instantiating.ms
     run.pool_bytes = torch.cuda.memory_reserved(device) - reserved
     return g, result, run
 
@@ -640,7 +693,9 @@ def capture(step: Callable, carry, max_iters: int, stop: float,
         def fn():
             return _solve_loop(_FORM.get(), step, static[0], max_iters, stop)
 
-    g, (carry, it, gnorm), run = capture_fn(fn, device, form, warm=lambda: block(*static))
+    g, (carry, it, gnorm), run = capture_fn(
+        fn, device, form, warm=lambda: block(*static),
+        marks=trace.MARKS_PER_STEP * max_iters + trace.ROOT_MARKS)
     return Captured(g, form, carry, it, gnorm, flag, run, static, max_iters=max_iters)
 
 
@@ -650,18 +705,18 @@ def launch(cap: Captured, run: FusedRun) -> FusedRun:
     replays until its flag reads false) and record this call's launches
     and times in ``run``, which it returns."""
     before = cap.launches
-    t0 = time.perf_counter()
-    if cap.form == "conditional":
-        events = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
-        events[0].record()
-        cap.replay()
-        events[1].record()
-        run.events = events
-    else:
-        while cap.replay():
-            pass
+    with trace.timed("trajopt.graph.launch") as launching:
+        if cap.form == "conditional":
+            events = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
+            events[0].record()
+            cap.replay()
+            events[1].record()
+            run.events = events
+        else:
+            while cap.replay():
+                pass
     run.replays = cap.launches - before
-    run.host_ms = (time.perf_counter() - t0) * 1e3
+    run.host_ms = launching.ms
     return run
 
 
@@ -698,22 +753,24 @@ def run_fused(step: Callable, carry, max_iters: int, stop: float, form: str | No
         cap = capture(step, carry, max_iters, stop, form)
         LAST_RUN = launch(cap, cap.run)
         return cap.carry, cap.it, cap.gnorm
-    t0 = time.perf_counter()
-    if form == "conditional":
-        nodes = EagerNodes()
-        with conditional_form(nodes):
-            carry, it, gnorm = _solve_loop(nodes, step, carry, max_iters, stop)
-        LAST_RUN = FusedRun("cpu", form, None, 1, {}, 0.0, 0.0,
-                            (time.perf_counter() - t0) * 1e3)
-        return carry, it, gnorm
-    block = _block(step, max_iters, stop)
-    it, gnorm = _start(carry)
-    active, replays = max_iters > 0, 0
-    with select_form() if form == "select" else contextlib.nullcontext():
-        while active:
-            carry, it, gnorm, flag = block(carry, it, gnorm)
-            replays += 1
-            active = bool(flag)
-    LAST_RUN = FusedRun("cpu", form, STEPS_PER_REPLAY, replays, {}, 0.0, 0.0,
-                        (time.perf_counter() - t0) * 1e3)
+    recorder = trace.HostRecorder() if trace.is_on() and form != "select" else None
+    with trace.timed("trajopt.graph.launch") as running, trace.recording(recorder):
+        if form == "conditional":
+            nodes = EagerNodes()
+            with conditional_form(nodes):
+                carry, it, gnorm = _solve_loop(nodes, step, carry, max_iters, stop)
+            replays, per_replay = 1, None
+        else:
+            block = _block(step, max_iters, stop)
+            it, gnorm = _start(carry)
+            active, replays, per_replay = max_iters > 0, 0, STEPS_PER_REPLAY
+            trace.phase("root")
+            with select_form() if form == "select" else contextlib.nullcontext():
+                while active:
+                    carry, it, gnorm, flag = block(carry, it, gnorm)
+                    replays += 1
+                    active = bool(flag)
+            trace.phase("root")
+    LAST_RUN = FusedRun("cpu", form, per_replay, replays, {}, 0.0, 0.0, running.ms,
+                        recorder=recorder)
     return carry, it, gnorm

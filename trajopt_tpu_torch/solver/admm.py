@@ -9,6 +9,11 @@ cache of ``optimal_plane=True``.  Each `lax.cond` of the JAX step is a
 stage of a staged ladder, the fleet's live-candidate gate and the gates
 inside the CCD.  In the host-stepped drivers each is a Python branch (one
 device-to-host sync); in the fused drivers' CUDA graph, an IF node.
+
+Under the tracing switch (`runtime.trace.on`) the step marks where each of
+its phases starts (`trace.PHASES`: planes, direction, ccd, armijo, slack,
+diag) and where it ends, and counts its planes and the Armijo trial
+energies it evaluates.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from ..ops import energies as en
 from ..ops import geometry as geo
 from ..ops import gradients as gr
 from ..ops import kkt
-from ..runtime import graph
+from ..runtime import graph, trace
 from ..types import PlaneCache, Planes, Scene, SolverState, SplineConsts, StepDiag
 
 _ARMIJO_C = 1e-4   # Optimization3D_admm.h:537
@@ -253,14 +258,17 @@ def _first_true(ok: torch.Tensor, dim=0) -> torch.Tensor:
     )
 
 
-def staged_ladder_ok(eval_ok, ladder: torch.Tensor, stage: int = 8) -> torch.Tensor:
+def staged_ladder_ok(eval_ok, ladder: torch.Tensor, stage: int = 8,
+                     trials: str | None = None) -> torch.Tensor:
     """Test the first ``stage`` rungs; only if some column still lacks an
     accept, recurse on the tail with a doubled stage (8, 16, 32, ...).
-    ``eval_ok(sub_ladder [M, ...]) -> bool [M, cols...]``."""
-    return staged_ladder_vals(lambda sub: (eval_ok(sub),), ladder, stage)[0]
+    ``eval_ok(sub_ladder [M, ...]) -> bool [M, cols...]``.  ``trials``: the
+    trace counter (`trace.count`) each stage run adds its rungs to."""
+    return staged_ladder_vals(lambda sub: (eval_ok(sub),), ladder, stage, trials)[0]
 
 
-def staged_ladder_vals(eval_fn, ladder: torch.Tensor, stage: int = 8) -> tuple:
+def staged_ladder_vals(eval_fn, ladder: torch.Tensor, stage: int = 8,
+                       trials: str | None = None) -> tuple:
     """The staged ladder of `staged_ladder_ok`, threading values beside the
     predicate: ``eval_fn(sub_ladder [M, ...]) -> (ok [M, cols...], *vals)``
     with each value shaped as ``ok``; a skipped stage gives False and +inf,
@@ -270,6 +278,8 @@ def staged_ladder_vals(eval_fn, ladder: torch.Tensor, stage: int = 8) -> tuple:
     s = ladder.shape[0]
     n1 = min(stage, s)
     out1 = tuple(eval_fn(ladder[:n1]))
+    if trials is not None:
+        trace.count(trials, n1)
     if n1 == s:
         return out1
     ok1 = out1[0]
@@ -278,7 +288,7 @@ def staged_ladder_vals(eval_fn, ladder: torch.Tensor, stage: int = 8) -> tuple:
         torch.all(torch.any(ok1, dim=0)),
         lambda: (torch.zeros(shape, dtype=torch.bool, device=ok1.device),) + tuple(
             torch.full(shape, float("inf"), dtype=v.dtype, device=v.device) for v in out1[1:]),
-        lambda: staged_ladder_vals(eval_fn, ladder[n1:], stage=2 * stage),
+        lambda: staged_ladder_vals(eval_fn, ladder[n1:], 2 * stage, trials),
     )
     return tuple(torch.cat([a, b], dim=0) for a, b in zip(out1, out2, strict=True))
 
@@ -347,9 +357,11 @@ def armijo_spline(
 
     def ladder():
         steps = step_candidates(cfg, t0.dtype, t0.device) * step0
-        ok = _with_floor_fallback(staged_ladder_ok(vmap(accepted), steps))
+        ok = _with_floor_fallback(staged_ladder_ok(vmap(accepted), steps,
+                                                   trials="armijo_trials"))
         return steps.gather(0, _first_true(ok)[None])[0]
 
+    trace.count("armijo_trials", 2)     # e0 and step0
     step = graph.device_cond(accepted(step0), lambda: step0, ladder)
     return state.spline + step * sd.direction, t0 + step * dt, step
 
@@ -479,15 +491,21 @@ def admm_step_cached(
 
 
 def _admm_step(consts, cfg, state, scene, cache=None):
+    trace.phase("planes")
     if cache is None:
         planes, overflow = separate_planes(consts, cfg, state.spline, scene)
     else:
         planes, overflow, cache = separate_planes(consts, cfg, state.spline, scene, cache)
+    trace.phase("direction")
     sd = spline_direction(consts, cfg, state, planes)
+    trace.phase("ccd")
     step_ccd = ccd_step(consts, cfg, state.spline, sd.direction, scene)
+    trace.phase("armijo")
     spline, piece_time, step = armijo_spline(consts, cfg, state, planes, sd, step_ccd)
     state = state._replace(spline=spline, piece_time=piece_time)
+    trace.phase("slack")
     state, residual = slack_update(consts, cfg, state)
+    trace.phase("diag")
     ev = en.spline_energy(consts, cfg, state, planes)
     diag = StepDiag(
         gnorm=sd.gnorm,
@@ -499,4 +517,6 @@ def _admm_step(consts, cfg, state, scene, cache=None):
         infeasible=ev.infeasible,
         plane_overflow=overflow,
     )
+    trace.count("planes", diag.n_planes)
+    trace.phase("end")
     return (state, diag) if cache is None else (state, diag, cache)

@@ -21,6 +21,9 @@ Port of `trajopt_tpu/solver/driver.py`:
   the constants, the scene and the start by value (`runtime.cache`);
 - scenario batches, `solve_fused_batch` (B single UAVs) and
   `solve_fused_batch_multi` (B fleets), through `solve_fused_multi`.
+
+Each fused driver's call is the trace span ``trajopt.solve``
+(`runtime.trace`), around the graph cache's spans.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from ..ops import broadphase as bp
 from ..ops import cuda_gjk
 from ..ops import energies as en
 from ..ops import geometry as geo
-from ..runtime import cache
+from ..runtime import cache, trace
 from ..types import Scene, SolverState, SplineConsts, StepDiag, empty_plane_cache
 from . import admm, multi
 
@@ -310,6 +313,7 @@ def fused_form(device: torch.device, axis_name) -> str | None:
     return None
 
 
+@trace.traced("trajopt.solve")
 def solve_fused(
     consts: SplineConsts,
     cfg: TrajOptConfig,
@@ -334,6 +338,7 @@ def _multi_static(kind: str, cfg: TrajOptConfig, coupled: bool, axis_name, inter
     return kind, cfg, coupled, axis_name, world, interact, groups
 
 
+@trace.traced("trajopt.solve")
 def solve_fused_multi(
     consts: SplineConsts,
     cfg: TrajOptConfig,
@@ -363,6 +368,7 @@ def solve_fused_multi(
     return state, it, gnorm
 
 
+@trace.traced("trajopt.solve")
 def solve_fused_multi_cached(
     consts: SplineConsts,
     cfg: TrajOptConfig,

@@ -10,7 +10,9 @@ obstacle and pair planes, the plateau and GJK gates of both CCDs, the GJK
 gate of each decoupled shrink round, and the coupled Armijo's step0 tests.
 The decoupled shrink `while_loop` is `graph.fixed_rounds` (a WHILE node in
 the graph), at most ``max_line_search`` rounds, ending at the first round
-in which every robot is certified.
+in which every robot is certified.  Under the tracing switch the step
+marks its phases and counts its work as `admm.admm_step` does
+(`runtime.trace`).
 
 Cross-robot coupling goes through four collectives, each taking
 ``axis_name``: a `torch.distributed` process group over which the robots
@@ -51,10 +53,10 @@ from ..ops import geometry as geo
 from ..ops import gradients as gr
 from ..ops import kkt
 from ..ops import splines as sp
-from ..runtime import graph
+from ..runtime import graph, trace
 from ..types import (PairPlaneCache, PlaneCache, Planes, Scene, SolverState, SplineConsts,
                      StepDiag, concat_planes, empty_pair_plane_cache, empty_plane_cache,
-                     init_state)
+                     robot_state)
 from . import admm
 
 _SHRINK = admm._SHRINK
@@ -121,10 +123,11 @@ def _robot_ids(u_local: int, axis_name, device) -> torch.Tensor:
     return torch.arange(offset, offset + u_local, device=device)
 
 
+@trace.traced("trajopt.init_state")
 def init_multi_state(ops: sp.SplineOps, way_points_list, init_piece_time: float = 20.0,
                      *, device, dtype) -> SolverState:
     """Stacked per-robot initial states (multi layout)."""
-    states = [init_state(ops, wp, init_piece_time, device=device, dtype=dtype, layout="multi")
+    states = [robot_state(ops, wp, init_piece_time, device, dtype, "multi")
               for wp in way_points_list]
     return SolverState(*(torch.stack(leaves) for leaves in zip(*states)))
 
@@ -407,7 +410,9 @@ def _coupled_update(consts, cfg, state, planes, ls, red, scene, axis_name=None):
     directions = kkt.spread_direction(consts, ds)
     gnorm = torch.sqrt(gs2 + gt_tot ** 2) / u_total
 
+    trace.phase("ccd")
     step0 = coupled_ccd_step(consts, cfg, state.spline, directions, scene, axis_name)
+    trace.phase("armijo")
     t0 = state.piece_time[0]
     step0 = torch.where(t0 + step0 * dt[0] <= 0, -0.95 * t0 / dt[0], step0)
     ttab = en.build_trial_tables(consts, cfg, state, planes, directions, dt)
@@ -425,10 +430,11 @@ def _coupled_update(consts, cfg, state, planes, ls, red, scene, axis_name=None):
             es = _psum(vmap(local_energy)(sub), axis_name)
             return admm.armijo_ok(e0, wolfe, sub, es), es
 
-        ok, es = admm.staged_ladder_vals(eval_ok, ladder)
+        ok, es = admm.staged_ladder_vals(eval_ok, ladder, trials="armijo_trials")
         i = admm._first_true(admm._with_floor_fallback(ok))[None]
         return ladder.gather(0, i)[0], es.gather(0, i)[0]
 
+    trace.count("armijo_trials", 2)     # e0 and step0
     # every input of the predicate is reduced over the group: one branch on every rank
     step, e_acc = graph.device_cond(admm.armijo_ok(e0, wolfe, step0, e_step0),
                                     lambda: (step0, e_step0), armijo_ladder)
@@ -477,7 +483,9 @@ def _coupled_grouped_update(consts, cfg, state, planes, ls, red, scene, groups):
     directions = kkt.spread_direction(consts, ds)
     gnorm = torch.mean(torch.sqrt(gs2 + gt_g ** 2) / upg)
 
+    trace.phase("ccd")
     step0 = coupled_ccd_step(consts, cfg, state.spline, directions, scene, groups=groups)
+    trace.phase("armijo")
     t0_g = first(state.piece_time)
     step0 = torch.where(t0_g + step0 * dt_g <= 0, -0.95 * t0_g / dt_g, step0)   # [G]
     ttab = en.build_trial_tables(consts, cfg, state, planes, directions, dt)
@@ -496,10 +504,11 @@ def _coupled_grouped_update(consts, cfg, state, planes, ls, red, scene, groups):
             es = vmap(group_energy)(sub)
             return admm.armijo_ok(e0, wolfe, sub, es), es
 
-        ok, es = admm.staged_ladder_vals(eval_ok, ladder)
+        ok, es = admm.staged_ladder_vals(eval_ok, ladder, trials="armijo_trials")
         i = admm._first_true(admm._with_floor_fallback(ok), dim=0)[None, :]
         return ladder.gather(0, i)[0], es.gather(0, i)[0].sum()
 
+    trace.count("armijo_trials", 2)     # e0 and step0
     step_g, e_acc = graph.device_cond(accept0.all(), lambda: (step0, e_step0.sum()),
                                       armijo_ladder)
     steps = rep(step_g)
@@ -530,8 +539,10 @@ def _decoupled_update(consts, cfg, state, planes, ls, red, scene, axis_name=None
     directions = kkt.spread_direction(consts, ds)
     gnorm = _gsum(ls.gnorm, axis_name) / (u * _world(axis_name))
 
+    trace.phase("ccd")
     ccd_steps = decoupled_ccd_steps(consts, cfg, state.spline, directions, scene, axis_name,
                                     interact=interact, groups=groups)
+    trace.phase("armijo")
     step0 = torch.where(state.piece_time + ccd_steps * dt <= 0,
                         -0.95 * state.piece_time / dt, ccd_steps)
     ttab = en.build_trial_tables(consts, cfg, state, planes, directions, dt)
@@ -543,9 +554,10 @@ def _decoupled_update(consts, cfg, state, planes, ls, red, scene, axis_name=None
     # parallel Armijo ladder per robot: [S, U]; its stage gates hold no
     # collective, so they stay rank-local
     ladder = admm.step_candidates(cfg, dt.dtype, dt.device)[:, None] * step0[None, :]
+    trace.count("armijo_trials", 1)     # e0; step0 is the ladder's first rung
     ok = admm.staged_ladder_ok(
-        vmap(lambda sv: admm.armijo_ok(e0, wolfe, sv, robot_energy(sv))), ladder
-    )
+        vmap(lambda sv: admm.armijo_ok(e0, wolfe, sv, robot_energy(sv))), ladder,
+        trials="armijo_trials")
     ok = admm._with_floor_fallback(ok)
     steps = torch.gather(ladder, 0, admm._first_true(ok, dim=0)[None, :])[0]
     spline = state.spline + steps[:, None, None] * directions
@@ -601,12 +613,14 @@ def _multi_step(consts, cfg, state, scene, coupled, caches=None, axis_name=None,
         raise ValueError(f"groups={groups} does not divide the fleet of {u_total} robots evenly")
     if coupled and groups > 1 and axis_name is not None:
         raise ValueError("grouped coupled batching is single-shard: axis_name must be None")
+    trace.phase("planes")
     if caches is None:
         planes, plane_overflow = _all_planes(consts, cfg, state, scene, axis_name=axis_name,
                                              interact=interact, groups=groups)
     else:
         planes, plane_overflow, caches = _all_planes(consts, cfg, state, scene, caches,
                                                      axis_name=axis_name)
+    trace.phase("direction")
     ls, red = _directions(consts, cfg, state, planes)
     if coupled and groups > 1:
         update = _coupled_grouped_update(consts, cfg, state, planes, ls, red, scene, groups)
@@ -616,9 +630,11 @@ def _multi_step(consts, cfg, state, scene, coupled, caches=None, axis_name=None,
         update = _decoupled_update(consts, cfg, state, planes, ls, red, scene, axis_name,
                                    interact, groups)
     spline, piece_time, steps, ccd_steps, gnorm, e_acc = update
+    trace.phase("slack")
     state, residual = admm.slack_update(
         consts, cfg, state._replace(spline=spline, piece_time=piece_time)
     )
+    trace.phase("diag")
     diag = StepDiag(
         gnorm=gnorm,
         consensus_residual=torch.sqrt(_gsum(residual ** 2, axis_name)),
@@ -629,4 +645,6 @@ def _multi_step(consts, cfg, state, scene, coupled, caches=None, axis_name=None,
         infeasible=~torch.isfinite(e_acc),
         plane_overflow=_gany(plane_overflow, axis_name),
     )
+    trace.count("planes", diag.n_planes)
+    trace.phase("end")
     return (state, diag) if caches is None else (state, diag, caches)

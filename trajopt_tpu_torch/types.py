@@ -8,6 +8,9 @@ package uses int32.  Every constructor takes an explicit ``device`` and
 `from_numpy` / `to_numpy` convert between the JAX package's containers (or
 any NamedTuple whose fields `np.asarray` accepts) and this package's, so
 tests can hand both solvers the same state.
+
+`make_scene` and `init_state` are the trace spans ``trajopt.make_scene``
+and ``trajopt.init_state`` (`runtime.trace`).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 
 from .ops import splines as _sp
+from .runtime import trace
 
 
 class SplineConsts(NamedTuple):
@@ -136,6 +140,7 @@ class Scene(NamedTuple):
     mask: torch.Tensor    # [N] bool: live points
 
 
+@trace.traced("trajopt.make_scene")
 def make_scene(points: np.ndarray, *, device, dtype, pad_to: int | None = None) -> Scene:
     """Padding rows sit at 1e8, far from any trajectory, and are masked."""
     pts = np.asarray(points, dtype=np.float64)
@@ -187,6 +192,7 @@ class Candidates(NamedTuple):
     d2: torch.Tensor    # [P, R, K] squared point-to-AABB distance
 
 
+@trace.traced("trajopt.init_state")
 def init_state(
     ops: _sp.SplineOps,
     way_points: np.ndarray,
@@ -198,6 +204,13 @@ def init_state(
 ) -> SolverState:
     """Initial ADMM state from waypoints: spline with pinned ends, slack =
     converted spline, duals zero, slack times = ``init_piece_time``."""
+    return robot_state(ops, way_points, init_piece_time, device, dtype, layout)
+
+
+def robot_state(ops: _sp.SplineOps, way_points: np.ndarray, init_piece_time: float, device,
+                dtype, layout: str) -> SolverState:
+    """`init_state` outside its span (a fleet's `multi.init_multi_state`
+    is one span over its robots')."""
     spline = _sp.waypoints_to_spline(way_points, ops.order, layout=layout)
     if spline.shape[0] != ops.trajectory_num:
         raise ValueError(
