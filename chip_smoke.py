@@ -37,7 +37,10 @@ Phases, each reported on its own lines with the seconds it took:
    NaN and inf, batches of 1 and 4097), K3's plain mode on every trial of
    the shift ladder (its rungs and bisection steps; the PD verdicts
    against the float64 spectrum), and K3, K4 and the fused kernel on the
-   rest as on phase 7's;
+   rest as on phase 7's; and `slack_step`, the slack phase in one launch,
+   on `testing.SLACK_CASES` (1 to 1024 robots of 1 to 20 pieces, a NaN
+   dual, a float32 overflow, the step clamp) against its plain version on
+   the card and in float64 on the CPU (`check_slack_case`);
 3. the single-UAV bridge solve (the reference's benchmark scene) at P=4 and
    P=16 pieces on the card, checked against the C++ reference's trajectory
    quality (tools/ref_baseline/results.json) and, at P=4, against the
@@ -74,7 +77,8 @@ Phases, each reported on its own lines with the seconds it took:
    times one round of its probe), one launch alone and busy inside the
    graph beside the graph's device ms, and K3's plain mode at the ladder's
    trial shapes beside `torch.linalg.cholesky_ex`; the fused kernel with
-   ``gmw=False`` beside `torch.linalg.solve`; last ``set_condition``
+   ``gmw=False`` beside `torch.linalg.solve`; `slack_step` at [4|256|
+   4096,19,19] beside its plain version (`slack_timings`); last ``set_condition``
    (`set_condition_timings`: a chain of 50 ``device_cond`` nodes in one
    graph, ms a node beside the select form's link, the kernel's own time
    from profiler records, and its plain version, a host read).  ``ms`` is
@@ -214,6 +218,8 @@ KERNELS = {
     "set_condition": ("trajopt_tpu_torch/csrc/graph_cond.cu",
                       "trajopt_tpu/solver/driver.py:318 (XLA's lowering of lax.while_loop and "
                       "lax.cond; no Pallas site)"),
+    "slack_step": ("trajopt_tpu_torch/csrc/slack.cu",
+                   "trajopt_tpu/solver/admm.py:501 (slack_update, left to XLA; no Pallas site)"),
 }
 # the kernels every solve must launch (K5 runs in the clearance cross-check)
 SOLVE_KERNELS = ("smallest_k", "gjk_exact", "mod_chol", "chol_solve", "factor_solve")
@@ -1149,6 +1155,115 @@ def check_pd_solve(device, log):
     return err
 
 
+SLACK_TOL = 1e-4   # slack_step's values: |a - b| <= SLACK_TOL (1 + |b|); the plain
+                   # version's own float32 against its float64 reads 1.5e-5 at most
+                   # on testing.SLACK_CASES (on the CPU)
+SLACK_ROUNDING = 1e-5   # an Armijo decision within float32 rounding: the step's energy
+                        # change within this x (1 + |e0|) of 0
+
+
+def check_slack_case(case, device, log=None):
+    """`slack_step` on one of `testing.SLACK_CASES` (float32, on the card)
+    against the plain version on the same inputs on the card, and both
+    against the plain version in float64 on the CPU (where the edge is not
+    float32's own): one launch; the accepted rung of every piece equal, or
+    one apart where the step's float64 energy change is within float32
+    rounding (`SLACK_ROUNDING`); slacks, duals and residuals within
+    `SLACK_TOL` and non-finite in the same places; the edge's own outcome
+    (the floor rung; the clamped time).  Returns the largest abs error
+    against the float32 plain version."""
+    import torch
+    from trajopt_tpu_torch import testing
+    from trajopt_tpu_torch.ops import _cuda, cuda_slack
+    from trajopt_tpu_torch.ops import energies as en
+    from trajopt_tpu_torch.solver import admm
+
+    name, robots, pieces, ks, edge = case
+    consts64, cfg, state64 = testing.slack_case(robots, pieces, ks, edge)
+    on_card = lambda x: type(x)(*(t.to(device=device, dtype=torch.float32)
+                                  if t.is_floating_point() else t.to(device) for t in x))
+    consts, state = on_card(consts64), on_card(state64)
+    before = _cuda.LAUNCHES["slack_step"]
+    got, res, rungs = cuda_slack.slack_step(consts, cfg, state)
+    _sync(device)
+    check(_cuda.LAUNCHES["slack_step"] == before + 1, f"slack {name}: not one launch")
+    plain, plain_res, plain_rungs = testing.slack_with_rungs(admm.slack_update_plain, consts,
+                                                             cfg, state)
+    fields = ("p_slack", "t_slack", "p_lambda", "t_lambda")
+    e0 = en.slack_energy(consts64, cfg, *_slack_energy_args(consts64, state64, state64))
+
+    def rung_faults(have, want, ref_state):
+        k, w = have.cpu().long().flatten(), want.cpu().long().flatten()
+        off = torch.nonzero(k != w).flatten()
+        e1 = en.slack_energy(consts64, cfg, *_slack_energy_args(consts64, state64, ref_state))
+        close = (e1 - e0).abs().flatten() <= SLACK_ROUNDING * (1 + e0.abs().flatten())
+        return [int(i) for i in off if (k[i] - w[i]).abs() != 1 or not bool(close[i])], len(off)
+
+    def hold(label, ref, ref_res, ref_rungs, other=got, other_res=res, other_rungs=rungs):
+        faults, n_off = rung_faults(other_rungs, ref_rungs, ref)
+        check(not faults, f"slack {name}: rungs {faults[:8]} differ from {label} by more than "
+                          f"float32 rounding allows")
+        worst = 0.0
+        for f, a, b in [(f, getattr(other, f), getattr(ref, f)) for f in fields] + [
+                ("residual", other_res, ref_res)]:
+            a, b = a.double().cpu(), b.double().cpu()
+            try:   # |a - b| <= SLACK_TOL (1 + |b|), NaN and +-inf in the same places
+                torch.testing.assert_close(a, b, rtol=SLACK_TOL, atol=SLACK_TOL, equal_nan=True)
+            except AssertionError as e:
+                raise CheckFailed(f"slack {name}: {f} against {label}: {e}") from None
+            fin = torch.isfinite(b)
+            worst = max(worst, float((a - b)[fin].abs().max()) if bool(fin.any()) else 0.0)
+        return worst, n_off
+
+    err, off32 = hold("plain float32", plain, plain_res, plain_rungs)
+    line = f"  slack_step {name}: vs plain float32 {err:.3g} abs, {off32} rungs one apart"
+    if edge not in testing.SLACK_F32_ONLY:
+        ref, ref_res, ref_rungs = testing.slack_with_rungs(admm.slack_update_plain, consts64,
+                                                           cfg, state64)
+        err64, off64 = hold("plain float64", ref, ref_res, ref_rungs)
+        hold("plain float64 (the plain version's float32)", ref, ref_res, ref_rungs,
+             other=plain, other_res=plain_res, other_rungs=plain_rungs)
+        line += f"; vs plain float64 {err64:.3g} abs, {off64} rungs one apart"
+    r, q = (min(testing.SLACK_EDGE_AT[0], robots - 1), min(testing.SLACK_EDGE_AT[1], pieces - 1))
+    at = (r, q) if robots > 1 else (q,)
+    if edge in ("nan", "overflow"):
+        check(int(rungs[at]) == cfg.max_line_search - 1, f"slack {name}: the floor rung was not taken")
+    if edge == "clamp":
+        ratio = float(got.t_slack[at] / state.t_slack[at])
+        want = 1 - 0.95 * 0.8 ** int(rungs[at])
+        check(abs(ratio - want) <= 1e-5, f"slack {name}: t fell to {ratio:.6g} of itself, "
+                                         f"not {want:.6g} (the clamp)")
+    if log is not None:
+        log(line + f"; rungs {int(rungs.sum())} in {rungs.numel()} pieces")
+    return err
+
+
+def _slack_energy_args(consts, state0, state):
+    """`energies.slack_energy`'s arguments after ``consts, cfg`` for the
+    slacks of ``state`` against the spline and duals of ``state0``
+    (float64, on the CPU)."""
+    import torch
+    from trajopt_tpu_torch.ops import energies as en
+
+    n = state0.t_slack.numel()
+    lead = state0.spline.shape[:-2]
+    c = torch.einsum("pij,...pjd->...pid", consts.convert.double(),
+                     en.piece_cps(consts, state0.spline.double().cpu())).reshape(n, -1, 3)
+    t = torch.broadcast_to(state0.piece_time.double().cpu()[..., None],
+                           lead + (consts.piece_num,)).reshape(n)
+    flat = lambda x: x.double().cpu().reshape((n,) + x.shape[len(lead) + 1:])
+    return (c, t, flat(state.p_slack), flat(state.t_slack), flat(state0.p_lambda),
+            flat(state0.t_lambda))
+
+
+def check_slack_step(device, log):
+    """`check_slack_case` on every case of `testing.SLACK_CASES`; the
+    largest abs error against the float32 plain version."""
+    from trajopt_tpu_torch import testing
+
+    return max(check_slack_case(case, device, log) for case in testing.SLACK_CASES)
+
+
 EIG_TOL = 1e-5       # K6 against float64: |w - w64| <= EIG_TOL x |H|_F, block by block
 LADDER_MARGIN = 1e-3  # a ladder trial whose float64 least eigenvalue is this far
                       # (x |H|_F) from 0 has one PD verdict any float32 Cholesky must give
@@ -1485,6 +1600,8 @@ def check_kernels(device, log, seed=0, pair_diffs=None):
     errs["chol_solve"], errs["factor_solve"] = check_solve(device, rng, factors, log)
     errs["factor_solve"] = max(errs["factor_solve"], check_pd_solve(device, log))
     lap("K4 and fused checks")
+    errs["slack_step"] = check_slack_step(device, log)
+    lap("slack_step checks")
     batch = check_chol_calls(device, log, batch_call_inputs(device))
     for name, err in zip(("mod_chol", "chol_solve", "factor_solve"), batch):
         errs[name] = max(errs[name], err)
@@ -2016,7 +2133,10 @@ def path_kernels(cfg, coupled, pieces, fused=False):
     with no launch of `chol_solve`.  ``psd_method="eigh"`` shifts by K6's
     eigenvalues where the GMW repair launches K3, its only caller below
     that size; only "eigh" launches K6 (the ladder's PD test is K3's plain
-    mode)."""
+    mode).  Under "gmw" with the closed-form Hessian the slack phase is one
+    `slack_step` launch, so a block-tridiagonal solve launches no fused K3
+    + K4; with any other repair (or ``grad_mode="autodiff"``) it is the
+    plain version's fused launch and `slack_step` is not launched."""
     tridiagonal = coupled is None and 9 * pieces - 3 > 64
     on = [k for k in SOLVE_KERNELS if k != "chol_solve" or not tridiagonal]
     off = []
@@ -2026,6 +2146,13 @@ def path_kernels(cfg, coupled, pieces, fused=False):
         on.append("eigvalsh")
     else:
         on, off = [k for k in on if k != "mod_chol"] + ["eigvalsh"], ["mod_chol"]
+    if cfg.psd_method == "gmw" and cfg.grad_mode == "analytic":
+        on.append("slack_step")
+        if tridiagonal:
+            on.remove("factor_solve")
+            off.append("factor_solve")
+    else:
+        off.append("slack_step")
     return (on + ["set_condition"], off) if fused else (on, off + ["set_condition"])
 
 
@@ -3573,6 +3700,52 @@ def eig_shape_timings(inputs, library=True, floor=None):
     return rows
 
 
+SLACK_TIMED = ("1x4", "64x4", "1024x4")   # testing.SLACK_CASES: [4|256|4096,19,19]
+SLACK_HEADLINE = "64x4"                    # the 64-robot cross's slack phase
+
+
+def slack_timings(device):
+    """`slack_step` at the solver's slack shapes (`SLACK_TIMED`: one UAV of
+    P = 4, the 64-robot cross, the B = 1024 batch): ms per call between
+    CUDA events (kernel, plain, plain, kernel, each one's best), device ms
+    from 50 launches in one CUDA graph, the plain version's ms per call
+    (`admm.slack_update_plain` on the card outside a graph: its ladder
+    stages are host branches) and the bound.  Bytes: every input read once
+    (the spline's rows, piece indices, conversion matrices, M, piece times,
+    slacks and duals) and every output written once; operations: per piece
+    the Hessian (19 x 19), K3's factor (2m^3/3 + 2m^2) and K4's solve
+    (4m^2), and 300 a trial energy for e0 and the rungs up to the accepted
+    one.  No one PyTorch call computes the phase.  [row]"""
+    import torch
+    from trajopt_tpu_torch import testing
+    from trajopt_tpu_torch.ops import cuda_slack
+    from trajopt_tpu_torch.solver import admm
+
+    rows = []
+    for case in (c for c in testing.SLACK_CASES if c[0] in SLACK_TIMED):
+        name, robots, pieces, ks, edge = case
+        consts, cfg, state = testing.slack_case(robots, pieces, ks, edge)
+        consts, state = (type(x)(*(t.to(device=device, dtype=torch.float32)
+                                   if t.is_floating_point() else t.to(device) for t in x))
+                         for x in (consts, state))
+        kern = lambda: cuda_slack.slack_step(consts, cfg, state)
+        plain = lambda: admm.slack_update_plain(consts, cfg, state)
+        rungs = kern()[2]
+        n, m = state.t_slack.numel(), 19
+        nbytes = (state.spline.numel() + consts.convert.numel() + consts.m_dyn.numel()
+                  + state.piece_time.numel() + 2 * (state.p_slack.numel() + n)) * 4 \
+            + consts.piece_idx.numel() * 8 + (2 * (state.p_slack.numel() + n) + robots + n) * 4
+        flops = n * (m * m + 2 * m ** 3 / 3 + 2 * m ** 2 + 4 * m ** 2) \
+            + 300 * (2 * n + int(rungs.sum()))
+        bound, by = bound_ms(nbytes, flops)
+        k1, p1, p2, k2 = time_ms(kern), time_ms(plain, 5), time_ms(plain, 5), time_ms(kern)
+        rows.append(dict(shape=f"[{n},19,19]", case=name, ms=min(k1, k2),
+                         device_ms=device_ms(kern), plain_ms=min(p1, p2), library_ms=None,
+                         library_device_ms=None, bound_ms=bound, bound_by=by,
+                         busy_ms=device_busy_share(kern, 20)[0] / 20))
+    return rows
+
+
 def psd_timings(device):
     """K6 at each solver call shape of `psd_call_inputs` (`eig_shape_timings`,
     with its latency floor, `eig_floor`) and K3's plain mode at each of the
@@ -3704,7 +3877,7 @@ def time_fused_calls(port, out_path):
     return 0
 
 
-def shape_counts(names=SOLVE_KERNELS + ("eigvalsh",)):
+def shape_counts(names=SOLVE_KERNELS + ("eigvalsh", "slack_step")):
     """{kernel: {call shape: launches}} since the last reset of the counts."""
     from trajopt_tpu_torch.ops import _cuda
 
@@ -3908,6 +4081,14 @@ def main() -> int:
         f"{floor_eig['round_ms']:.6f}")
     times["eigvalsh"] = next(r for r in psd_rows if r["kernel"] == "eigvalsh"
                              and r["shape"] == EIG_HEADLINE)
+    slack_rows = slack_timings(device)
+    log("  slack_step at the solver's slack shapes (ms per call / device ms, busy ms under "
+        "torch.profiler; the plain version's ms per call; bound):")
+    for r in slack_rows:
+        log(f"    slack_step {r['shape']} ({r['case']}): kernel {r['ms']:.4f} / "
+            f"{r['device_ms']:.4f} (busy {r['busy_ms']:.4f}), plain {r['plain_ms']:.4f}, bound "
+            f"{r['bound_ms']:.5f} ({r['bound_by']})")
+    times["slack_step"] = next(r for r in slack_rows if r["case"] == SLACK_HEADLINE)
     sc = times["set_condition"] = set_condition_timings(device)
     log(f"  set_condition: one device_cond node (set_condition, an IF/ELSE node, one-element "
         f"sides) {sc['ms']:.5f} ms a node in a chain of 50 in one graph (the select form's "
@@ -3969,6 +4150,8 @@ def main() -> int:
         if name == "eigvalsh":
             kernels[-1]["by_call_shape"] = [r for r in psd_rows if r["kernel"] == name]
             kernels[-1]["latency_floor"] = floor_eig
+        if name == "slack_step":
+            kernels[-1]["by_call_shape"] = slack_rows
         if name == "gjk_fw":
             kernels[-1]["by_call_shape"] = [r for r in rows if r["kernel"] == name]
             kernels[-1]["group_sweep_device_ms"] = sweep

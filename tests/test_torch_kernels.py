@@ -7,8 +7,12 @@ for K1, `geometry.origin_simplex_dist` for K2, `ops/smallchol.py` for K3/K4
 and their fused launch (and, in float32, the Pallas kernels themselves in
 interpret mode).
 The kernels themselves are compared with the plain versions on the card
-(`test_kernels_match_plain_on_card`, and chip_smoke.py).
+(`test_kernels_match_plain_on_card`, `test_slack_step_matches_plain_on_card`,
+and chip_smoke.py).
 """
+
+import ctypes
+import re
 
 import jax
 import jax.numpy as jnp
@@ -20,8 +24,9 @@ from trajopt_tpu.ops import geometry as jgeo
 from trajopt_tpu.ops import smallchol as jsc
 from trajopt_tpu_torch import testing as kernel_cases
 from trajopt_tpu_torch.config import TrajOptConfig
-from trajopt_tpu_torch.ops import _cuda, cuda_chol, cuda_eig, cuda_gjk, cuda_topk
+from trajopt_tpu_torch.ops import _cuda, cuda_chol, cuda_eig, cuda_gjk, cuda_slack, cuda_topk
 from trajopt_tpu_torch.ops import geometry as geo
+from trajopt_tpu_torch.solver import admm
 
 torch.set_num_threads(1)
 F64 = dict(dtype=torch.float64, device="cpu")
@@ -387,3 +392,91 @@ def test_kernels_match_plain_on_card():
     assert set(errs) == set(_cuda.LAUNCHES)
     with pytest.raises(TypeError, match="float32"):
         cuda_topk.smallest_k(torch.zeros(4, 8, dtype=torch.float64, device="cuda"), 2)
+
+
+# ---------------------------------------------------------------------------
+# slack_step (csrc/slack.cu): the slack phase in one launch
+# ---------------------------------------------------------------------------
+
+
+def _c_params(text: str, name: str) -> list[str]:
+    """The parameter types of the C entry point ``name`` in ``text``."""
+    body = re.search(rf'extern "C" int {name}\(([^)]*)\)', text).group(1)
+    return [re.sub(r"\s*\w+$", "", p.strip()) for p in body.split(",")]
+
+
+def test_slack_source_is_built_and_bound():
+    """``csrc/slack.cu`` and the K3/K4 device code it shares with
+    ``chol.cu`` are in the build's hash; its C entry point's ctypes
+    signature has a pointer for every pointer, an int for every int and a
+    float for every float; ``slack_step`` is counted."""
+    assert "slack.cu" in _cuda.SOURCES and "chol_device.cuh" in _cuda.HEADERS
+    for source in ("slack.cu", "chol.cu"):
+        assert '#include "chol_device.cuh"' in (_cuda.CSRC / source).read_text()
+    params = _c_params((_cuda.CSRC / "slack.cu").read_text(), "trajopt_slack_step")
+    kinds = [ctypes.c_void_p if "*" in p else ctypes.c_float if p == "float" else ctypes.c_int
+             for p in params]
+    assert all("*" in p or p in ("int", "float") for p in params)
+    assert kinds == _cuda._SIGNATURES["trajopt_slack_step"]
+    assert "slack_step" in _cuda.LAUNCHES
+
+
+def test_slack_step_takes_card_float32_only():
+    """The wrapper launches or raises: a CPU state raises (the caller takes
+    the plain version there), float64 raises TypeError, a tensor off the
+    card ValueError; none falls back to the plain version."""
+    consts, cfg, state = kernel_cases.slack_case(1, 4, 1e-8, None)
+    with pytest.raises(ValueError, match="on the card"):
+        cuda_slack.slack_step(consts, cfg, state)
+    for dtype, error, match in ((torch.float64, TypeError, "float32"),
+                                (torch.float32, ValueError, "CUDA")):
+        meta = lambda x: type(x)(*(t.to("meta", dtype) if t.is_floating_point() else t.to("meta")
+                                   for t in x))
+        with pytest.raises(error, match=match):
+            cuda_slack.slack_step(meta(consts), cfg, meta(state))
+
+
+@pytest.mark.parametrize("case", kernel_cases.SLACK_CASES, ids=[c[0] for c in kernel_cases.SLACK_CASES])
+def test_slack_cases_reach_their_edges(case):
+    """The plain version in float64 (and float32 where the edge is
+    float32's own) takes each case's edge: the floor rung for "nan" and
+    "overflow", the clamped time for "clamp"; and in every case the pinned
+    control points keep their slacks (their gradient is zeroed)."""
+    name, robots, pieces, ks, edge = case
+    consts, cfg, state = kernel_cases.slack_case(robots, pieces, ks, edge)
+    if edge in kernel_cases.SLACK_F32_ONLY:
+        to32 = lambda x: type(x)(*(t.float() if t.is_floating_point() else t for t in x))
+        consts, state = to32(consts), to32(state)
+    new, res, rungs = kernel_cases.slack_with_rungs(admm.slack_update_plain, consts, cfg,
+                                                    state)
+    r = min(kernel_cases.SLACK_EDGE_AT[0], robots - 1)
+    q = min(kernel_cases.SLACK_EDGE_AT[1], pieces - 1)
+    at = (r, q) if robots > 1 else (q,)
+    if edge in ("nan", "overflow"):
+        assert int(rungs[at]) == cfg.max_line_search - 1
+        assert bool(torch.isfinite(new.p_slack[at]).all())
+    if edge == "clamp":
+        ratio = float(new.t_slack[at] / state.t_slack[at])
+        assert ratio == pytest.approx(1 - 0.95 * 0.8 ** int(rungs[at]), rel=1e-12)
+    assert bool((rungs >= 0).all()) and bool((rungs < cfg.max_line_search).all())
+    assert new.p_slack.shape == state.p_slack.shape and res.shape == state.piece_time.shape
+    # the pinned control points: the first piece's rows 0-1, the last's 4-5
+    pinned = (..., 0, slice(0, 2), slice(None)), (..., pieces - 1, slice(4, 6), slice(None))
+    for rows in pinned:
+        assert torch.equal(new.p_slack[rows], state.p_slack[rows])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", kernel_cases.SLACK_CASES, ids=[c[0] for c in kernel_cases.SLACK_CASES])
+def test_slack_step_matches_plain_on_card(case):
+    """`slack_step` against the plain version on the card on the same
+    float32 inputs and against the plain version in float64 on the CPU
+    (`chip_smoke.check_slack_case`): one launch, every piece's accepted
+    rung (one apart only where the step's energy change is within float32
+    rounding), slacks, duals and residuals within 1e-4 x (1 + |value|),
+    non-finite in the same places, and the edge's own outcome."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card: python3 chip_smoke.py, phase 2)")
+    import chip_smoke
+
+    chip_smoke.check_slack_case(case, torch.device("cuda"))

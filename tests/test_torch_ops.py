@@ -279,3 +279,46 @@ def test_rung_floor_lattice():
                     (0.79, 0.8 ** 2), (0.0, 0.0), (-1.0, 0.0), (1e-9, 0.0)]:
         got = float(admm.rung_floor(TCFG, torch.tensor(s, **F64)))
         assert got == pytest.approx(want, abs=1e-12), s
+
+
+@pytest.mark.parametrize("t", [0.3, 30.0], ids=["t0.3", "t30"])
+@pytest.mark.parametrize("piece", [0, 1, 3], ids=["first", "middle", "last"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_slack_closed_form_matches_torch_func(seed, piece, t):
+    """The closed-form gradient and Hessian of the slack energy that the
+    card's slack kernel (`ops/cuda_slack.py`, ``csrc/slack.cu``) computes,
+    written out here, against `gradients.grad_and_hess` (`torch.func`) of
+    `gradients.local_slack_energy` in float64 at rtol 1e-10, both after the
+    freeze mask of piece ``piece`` of 4.  With a(t) = ks/2 t^-n (n = 2 der -
+    1) and q = sum_d p_d^T M p_d:
+    g_p = 2a M p - mu (c - p) - lambda, g_t = a' q + 1.1 kt t^0.1 - mu (T -
+    t) - lambda_t, H_pp = (2a M + mu I) x I_3, H_pt = 2a' M p, H_tt = a'' q +
+    0.11 kt t^-0.9 + mu."""
+    from trajopt_tpu_torch.ops import splines as tsp
+
+    rng = np.random.default_rng(seed)
+    cfg = tconfig.TrajOptConfig(ks=1e-3)
+    m = tt.device_consts(tsp.build_spline_ops(4, 2), **F64).m_dyn
+    p, c, lam = (torch.as_tensor(rng.normal(size=(6, 3)), **F64) for _ in range(3))
+    big_t, t_lam = (torch.tensor(v, **F64) for v in (rng.uniform(1.0, 5.0), rng.normal()))
+    x = torch.cat([p.reshape(-1), torch.tensor([t], **F64)])
+    g_ref, h_ref = gr.grad_and_hess(
+        lambda x: gr.local_slack_energy(x, c, big_t, lam, t_lam, m, cfg), x)
+
+    n = 2 * cfg.der - 1
+    a = cfg.ks / 2 * t ** -n
+    a1, a2 = -n * a / t, n * (n + 1) * a / t ** 2
+    mp = m @ p
+    q = torch.sum(p * mp)
+    g = torch.cat([(2 * a * mp - cfg.mu * (c - p) - lam).reshape(-1),
+                   (a1 * q + 1.1 * cfg.kt * t ** 0.1 - cfg.mu * (big_t - t) - t_lam)[None]])
+    h = torch.zeros((19, 19), **F64)
+    h[:18, :18] = torch.kron(2 * a * m + cfg.mu * torch.eye(6, **F64), torch.eye(3, **F64))
+    h[:18, 18] = h[18, :18] = 2 * a1 * mp.reshape(-1)
+    h[18, 18] = a2 * q + 0.11 * cfg.kt * t ** -0.9 + cfg.mu
+
+    mask = admm._slack_freeze_mask(4, torch.float64, "cpu")[piece]
+    keep = (mask[:, None] * mask[None, :]) > 0
+    eye = torch.eye(19, **F64)
+    _close(g * mask, g_ref * mask)
+    _close(torch.where(keep, h, eye), torch.where(keep, h_ref, eye))

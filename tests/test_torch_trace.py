@@ -7,17 +7,24 @@ JAX, so that on a card machine ``python -m pytest --noconftest -m cuda
 tests/test_torch_trace.py`` runs it."""
 
 import contextlib
+import dataclasses
+import importlib
+import importlib.util
+import sys
+import types
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from trajopt_tpu_torch import config as tconfig
+from trajopt_tpu_torch import testing
 from trajopt_tpu_torch import types as tt
 from trajopt_tpu_torch.ops import splines as sp
 from trajopt_tpu_torch.runtime import cache, graph, trace
 from trajopt_tpu_torch.scenes import generators as gen
-from trajopt_tpu_torch.solver import driver, multi
+from trajopt_tpu_torch.solver import admm, driver, multi
 
 torch.set_num_threads(1)
 F64 = dict(device="cpu", dtype=torch.float64)
@@ -25,6 +32,7 @@ ITERS = 5
 WAYPOINTS = np.array([[-3.0, 0.0, 0.0], [-1.0, 1.7, 0.0], [1.0, 1.7, 0.0], [3.0, 0.0, 0.0]])
 STEP = [trace.MARK_IDS[p] for p in trace.PHASES] + [trace.MARK_IDS["end"]]
 ROOT = trace.MARK_IDS["root"]
+CHECKOUT = Path(__file__).resolve().parent.parent
 
 
 def single_problem(device="cpu", dtype=torch.float64):
@@ -168,14 +176,70 @@ def test_device_recorder_buffer_and_plain_mark():
     rec.count("planes", torch.tensor(4))
     rec.count("planes", torch.tensor(True).sum())
     rec.count("armijo_trials", 8)
+    rec.count("slack_rungs", torch.tensor([0, 2, 1], dtype=torch.int32).sum())
     assert [m for m, _ in rec.marks()] == [0, 1, 2]
     assert rec.dropped() == 2
-    assert rec.counters() == {"planes": 5, "ccd_live_segments": 0, "armijo_trials": 8}
+    assert rec.counters() == {"planes": 5, "ccd_live_segments": 0, "armijo_trials": 8,
+                              "slack_rungs": 3}
     rec.reset()
     assert rec.marks() == [] and rec.dropped() == 0
     assert set(rec.counters().values()) == {0}
     with pytest.raises(ValueError, match="int64"):
         graph.cuda_cond.mark(torch.zeros((2, 2)), torch.zeros(1, dtype=torch.int64), 0)
+
+
+def _benchmark_module(name: str):
+    """A module of the benchmark's folder (``reference.admm``, the
+    ``tools/`` scripts' ``harness``), imported as ``benchmark/run.py``
+    imports them: with the folder on the path."""
+    if str(CHECKOUT / "benchmark") not in sys.path:
+        sys.path.insert(0, str(CHECKOUT / "benchmark"))
+    return importlib.import_module(name)
+
+
+@pytest.mark.parametrize("case", testing.SLACK_CASES, ids=[c[0] for c in testing.SLACK_CASES])
+def test_slack_update_is_the_frozen_reference_with_its_rungs_counted(case):
+    """On the CPU in float64 `admm.slack_update` (the plain version) is bit
+    for bit the benchmark's frozen `reference/admm.py::slack_update` with
+    the switch on, and the ``slack_rungs`` counter is the sum of every
+    piece's accepted rung index there."""
+    ref_admm = _benchmark_module("reference.admm")
+    consts, cfg, state = testing.slack_case(*case[1:])
+    with trace.on() as rec:
+        got, res = admm.slack_update(consts, cfg, state)
+    want, want_res, rungs = testing.slack_with_rungs(ref_admm.slack_update, consts, cfg, state)
+    for a, b in zip(tuple(got) + (res,), tuple(want) + (want_res,), strict=True):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    assert rec.counters()["slack_rungs"] == int(rungs.sum())
+
+
+def test_trace_report_reports_slack_rungs_and_one_cloud_counts_the_same():
+    """`tools/trace_report.py`'s stretch and summary on a stand-in planner
+    (fused CPU solves of this file's problem): every counter of
+    `trace.COUNTERS`, ``slack_rungs`` among them, is reported an iteration,
+    and two plans of one cloud count the same."""
+    spec = importlib.util.spec_from_file_location("trace_report",
+                                                  CHECKOUT / "tools" / "trace_report.py")
+    report = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(report)
+    cfg, consts, scene, state0 = single_problem()
+
+    class Planner:
+        def plan(self, req):
+            _, it, _ = driver.solve_fused(consts, cfg, state0, scene, max_iters=ITERS)
+            run = graph.LAST_RUN
+            return types.SimpleNamespace(index=req.index, iterations=int(it), hit=run.hit,
+                                         launch_ms=run.replay_ms, latency_ms=2 * run.replay_ms)
+
+    pool = [types.SimpleNamespace(index=i) for i in (0, 1, 0)]
+    stretches = [report.stretch(Planner(), pool, pool[:1], "cpu", on) for on in (False, True)]
+    summary = report.summary(stretches)
+    assert set(summary["counters_per_iter"]) == set(trace.COUNTERS)
+    assert "slack_rungs" in trace.COUNTERS
+    assert summary["same_cloud_same_counters"]
+    first, _, again = stretches[1]["traced"]
+    assert first["counters"] == again["counters"]
+    assert first["counters"]["slack_rungs"] >= 0
 
 
 # ---------------------------------------------------------------------------
@@ -353,3 +417,37 @@ def test_marks_on_card():
         torch.cuda.synchronize()
     assert graph.LAST_RUN.hit and graph.LAST_RUN.counters() == first
     assert first["planes"] > 0
+
+
+@pytest.mark.cuda
+def test_slack_step_launches_once_a_step_on_card():
+    """On the card the slack phase is one `slack_step` launch a step: in the
+    host-stepped solve one launch an iteration; in the fused solve one
+    kernel node in the captured step, executed once an iteration (the
+    nodes' tallies), and the ``slack_rungs`` counter the same on a second
+    launch; under ``psd_method="eigh"`` and ``grad_mode="autodiff"`` the
+    plain version runs and `slack_step` is not launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (on the card: python -m pytest --noconftest -m cuda "
+                    "tests/test_torch_trace.py)")
+    from trajopt_tpu_torch.ops import _cuda
+
+    cfg, consts, scene, state0 = single_problem("cuda", torch.float32)
+    before = _cuda.LAUNCHES["slack_step"]
+    _, history = driver.solve(consts, cfg, state0, scene, max_iters=ITERS)
+    assert _cuda.LAUNCHES["slack_step"] - before == len(history)
+    with trace.on():
+        _, it, _ = driver.solve_fused(consts, cfg, state0, scene, max_iters=ITERS)
+        torch.cuda.synchronize()
+        run = graph.LAST_RUN
+        assert run.kernel_nodes["slack_step"] == 1
+        assert run.executions()["slack_step"] == int(it)
+        first = run.counters()
+        driver.solve_fused(consts, cfg, state0, scene, max_iters=ITERS)
+        torch.cuda.synchronize()
+        assert graph.LAST_RUN.hit and graph.LAST_RUN.counters() == first
+    for options in (dict(psd_method="eigh"), dict(grad_mode="autodiff")):
+        other = dataclasses.replace(cfg, **options)
+        before = _cuda.LAUNCHES["slack_step"]
+        driver.solve(consts, other, state0, scene, max_iters=2)
+        assert _cuda.LAUNCHES["slack_step"] == before

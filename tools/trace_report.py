@@ -25,8 +25,10 @@ the benchmark's (`benchmark/harness`).  In order, in one process:
 One JSON object is printed last (and written to ``--out``): per stretch
 the launch ms an iteration and host ms a plan; the on stretches' phases an
 iteration with their sum against the launch's CUDA events, counters an
-iteration, whether plans of the same cloud counted the same, and the host
-spans a plan; the medians of both sides; the card and its power limit.
+iteration, whether plans of the same cloud counted the same, the graph's
+kernel nodes by wrapper and its IF and WHILE nodes, each wrapper's kernel
+executions an iteration (on the card), and the host spans a plan; the
+medians of both sides; the card and its power limit.
 """
 
 from __future__ import annotations
@@ -101,7 +103,9 @@ def plan(program, req, on: bool) -> dict:
         spans = collections.defaultdict(float)
         for s in trace.drain():
             spans[s.name] += (s.end_ns - s.start_ns) * 1e-6
-        out.update(phases=run.phases(), counters=run.counters(), spans=dict(spans))
+        out.update(phases=run.phases(), counters=run.counters(), spans=dict(spans),
+                   kernel_nodes=dict(run.kernel_nodes), cond_nodes=dict(run.cond_nodes),
+                   executions=run.executions())
     return out
 
 
@@ -160,6 +164,10 @@ def summary(stretches: list) -> dict:
         "counters_per_iter": {k: sum(p["counters"][k] for p in plans) / its
                               for k in trace.COUNTERS},
         "same_cloud_same_counters": all(len(v) == 1 for v in by_cloud.values()),
+        "kernel_nodes": plans[-1]["kernel_nodes"],
+        "cond_nodes": plans[-1]["cond_nodes"],
+        "executions_per_iter": {k: sum(p["executions"].get(k, 0) for p in plans) / its
+                                for k in plans[-1]["executions"]},
         "dropped_marks": sum(p["phases"]["dropped"] for p in plans),
         "spans_ms_per_plan": spans,
         "inputs_host_ms_per_plan": spans["trajopt.make_scene"] + spans["trajopt.init_state"],

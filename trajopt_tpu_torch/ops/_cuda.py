@@ -27,7 +27,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("topk.cu", "gjk.cu", "gjk_fw.cu", "chol.cu", "eig.cu", "graph_cond.cu")
+SOURCES = ("topk.cu", "gjk.cu", "gjk_fw.cu", "chol.cu", "eig.cu", "graph_cond.cu", "slack.cu")
+HEADERS = ("chol_device.cuh",)   # included by sources; hashed with them
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -42,7 +43,7 @@ FLAGS = (
 # (`runtime.graph.FusedRun.kernel_nodes` keeps the per-capture count,
 # `FusedRun.executions` the executions of the last launch).
 LAUNCHES = {"smallest_k": 0, "gjk_exact": 0, "gjk_fw": 0, "mod_chol": 0, "chol_solve": 0,
-            "factor_solve": 0, "eigvalsh": 0, "set_condition": 0}
+            "factor_solve": 0, "eigvalsh": 0, "set_condition": 0, "slack_step": 0}
 LAUNCH_SHAPES: collections.Counter = collections.Counter()
 
 _lib: ctypes.CDLL | None = None
@@ -59,6 +60,9 @@ _SIGNATURES = {
     "trajopt_chol_solve": [_vp, _vp, _vp, _int, _int, _int, _vp],
     "trajopt_factor_solve": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _float, _vp],
     "trajopt_chol_probe": [_vp, _int, _int, _vp],
+    "trajopt_slack_step": [_vp, _int, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                           _vp, _vp, _int, _int, _int, _float, _float, _float, _float, _int,
+                           _float, _vp],
     "trajopt_eigvalsh": [_vp, _vp, _int, _int, _vp],
     "trajopt_eig_probe": [_vp, _int, _vp],
     "trajopt_set_condition": [_u64, _vp, _int, _vp, _vp],
@@ -90,7 +94,7 @@ def _nvcc() -> str:
 def _build() -> Path:
     nvcc = _nvcc()
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(FLAGS).encode())

@@ -51,7 +51,7 @@ MARK_IDS = {**{name: i for i, name in enumerate(PHASES)}, "end": len(PHASES),
             "root": len(PHASES) + 1}
 MARKS_PER_STEP = len(PHASES) + 1
 ROOT_MARKS = 2
-COUNTERS = ("planes", "ccd_live_segments", "armijo_trials")
+COUNTERS = ("planes", "ccd_live_segments", "armijo_trials", "slack_rungs")
 # Host spans kept until `drain`; later ones are dropped and counted.
 MAX_SPANS = 1 << 16
 

@@ -12,8 +12,8 @@ device-to-host sync); in the fused drivers' CUDA graph, an IF node.
 
 Under the tracing switch (`runtime.trace.on`) the step marks where each of
 its phases starts (`trace.PHASES`: planes, direction, ccd, armijo, slack,
-diag) and where it ends, and counts its planes and the Armijo trial
-energies it evaluates.
+diag) and where it ends, and counts its planes, the Armijo trial
+energies it evaluates and the slack ladder's accepted rungs.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from ..config import TrajOptConfig
 from ..ops import broadphase as bp
 from ..ops import ccd as ccd_ops
 from ..ops import cuda_chol
+from ..ops import cuda_slack
 from ..ops import cuda_topk
 from ..ops import energies as en
 from ..ops import geometry as geo
@@ -387,10 +388,31 @@ def slack_update(
     Returns (new_state, consensus_residual).
 
     The state may carry a leading robot axis U (the residual is then [U]):
-    the pieces of all robots form one batch (one fused K3 + K4 launch).
-    A ladder stage is evaluated when any piece of any robot still lacks an
-    accepted rung, where the reference's vmapped `lax.cond` selects per
-    robot; the first accepted rung of every piece is the same either way."""
+    the pieces of all robots form one batch.  On the card, with the GMW
+    repair and the closed-form Hessian (``psd_method="gmw"``,
+    ``grad_mode="analytic"``), the whole phase is one launch of
+    `cuda_slack.slack_step`; everywhere else (the CPU, ``eigh`` and
+    ``ladder``, ``grad_mode="autodiff"``) it is `slack_update_plain`.
+    Counts each piece's accepted rung index into the ``slack_rungs`` trace
+    counter."""
+    if (state.spline.device.type == "cuda" and cfg.psd_method == "gmw"
+            and cfg.grad_mode == "analytic"):
+        new_state, residual, rungs = cuda_slack.slack_step(consts, cfg, state)
+        trace.count("slack_rungs", lambda: rungs.sum())
+        return new_state, residual
+    return slack_update_plain(consts, cfg, state)
+
+
+def slack_update_plain(
+    consts: SplineConsts, cfg: TrajOptConfig, state: SolverState
+) -> tuple[SolverState, torch.Tensor]:
+    """`slack_update` in plain PyTorch, the kernel's plain version: the
+    slack energy's Hessian by `torch.func` (``vmap(jacfwd(grad))``), the
+    PSD repair of ``cfg.psd_method`` and one fused K3 + K4 launch, and the
+    staged Armijo ladder.  A ladder stage is evaluated when any piece of any
+    robot still lacks an accepted rung, where the reference's vmapped
+    `lax.cond` selects per robot; the first accepted rung of every piece is
+    the same either way."""
     p_num = consts.piece_num
     lead = state.spline.shape[:-2]
     n_pc = state.t_slack.numel()                     # robots x pieces
@@ -449,7 +471,9 @@ def slack_update(
     ladder = step_candidates(cfg, xs.dtype, xs.device)[:, None] * step[None, :]   # [S,U*P]
     ok = staged_ladder_ok(vmap(lambda sv: e0 - _ARMIJO_C * wolfe * sv >= trial(sv)), ladder)
     ok = _with_floor_fallback(ok)
-    step = torch.gather(ladder, 0, _first_true(ok, dim=0)[None, :])[0]
+    rung = _first_true(ok, dim=0)
+    trace.count("slack_rungs", lambda: rung.sum())
+    step = torch.gather(ladder, 0, rung[None, :])[0]
 
     p_slack = p_slack0 + step[:, None, None] * d_cp
     t_slack = t_slack0 + step * d_t

@@ -1,8 +1,8 @@
 """Edge-case inputs and a float64 oracle for checking K1 (`smallest_k`), K2
 (`gjk_exact`), K3/K4 (`mod_chol`, `chol_solve`, `factor_solve`), K5
-(`gjk_diffset`, `gjk_pairs`) and K6 (`eigvalsh`) where their decisions and
-their routes are most fragile, and a float32 model of K6's algorithm
-(`eig_kernel_model`).
+(`gjk_diffset`, `gjk_pairs`), K6 (`eigvalsh`) and `slack_step`
+(`slack_cases`) where their decisions and their routes are most fragile,
+and a float32 model of K6's algorithm (`eig_kernel_model`).
 
 ``chip_smoke.py`` holds the kernels to their plain versions on these inputs
 on the card; ``tests/test_torch_kernels.py`` pins the plain versions to the
@@ -420,3 +420,92 @@ PSD_JAX_ROWS = {
     "u64 coupled ladder": dict(iters=22, converged=True, ccd_time=924.5679653000124,
                                ccd_len=1610.7224059124585, min_clearance=0.14277637998433032),
 }
+
+
+# `slack_step` against `solver.admm.slack_update_plain`: (name, robots,
+# pieces, ks, edge).  Every case has the freeze mask (the first and the last
+# piece of each robot); 20 pieces are more than the kernel's warps a block.
+# Edges, each at one piece: "nan" (t_lambda NaN: a non-finite Newton
+# direction, the steepest-descent fallback, every trial NaN and the floor
+# rung), "overflow" (one lambda of 1e38: in float32 the Newton direction
+# overflows, the fallback's slope is +inf and the piece takes the floor
+# rung with finite control points; float64 does not overflow), "clamp"
+# (t_slack 0.1 and t_lambda -50: the Newton step would take t below 0, and
+# the step clamp holds it; the piece takes rung 4).
+SLACK_CASES = (
+    ("1x4", 1, 4, 1e-8, None),
+    ("64x4", 64, 4, 1e-3, None),
+    ("1024x4", 1024, 4, 1e-8, None),
+    ("1x16", 1, 16, 1e-3, None),
+    ("2x20", 2, 20, 1e-3, None),
+    ("3x1", 3, 1, 1e-3, None),
+    ("4x4 nan", 4, 4, 1e-3, "nan"),
+    ("4x4 overflow", 4, 4, 1e-8, "overflow"),
+    ("4x4 clamp", 4, 4, 1e-8, "clamp"),
+)
+SLACK_EDGE_AT = (1, 2)   # (robot, piece) of the edge
+SLACK_F32_ONLY = ("overflow",)
+
+
+def slack_case(robots: int, pieces: int, ks: float, edge: str | None, seed: int = 0):
+    """(consts, cfg, state) for `slack_update` in float64 on the CPU: a
+    fleet of ``robots`` (one robot: no leading axis) of ``pieces`` pieces,
+    its spline, slacks and duals drawn from ``seed`` a few hundredths to a
+    few tenths from the consensus, piece times 1.5-6, and ``edge`` at
+    `SLACK_EDGE_AT` (`SLACK_CASES`)."""
+    from .config import TrajOptConfig
+    from .ops import splines as sp
+    from .types import SolverState, device_consts
+
+    rng = np.random.default_rng(seed)
+    ops = sp.build_spline_ops(pieces, 2)
+    cfg = TrajOptConfig(res=2, ks=ks)
+    u, n = robots, ops.order + 1
+    rows = ops.trajectory_num
+    base = np.stack([np.linspace(-3, 3, rows), 0.3 * np.sin(np.linspace(0, 3, rows)),
+                     np.zeros(rows)], axis=1)
+    spline = base[None] + rng.normal(scale=0.03, size=(u, rows, 3))
+    idx = sp.piece_row_index(pieces, ops.order)
+    c = np.einsum("pij,upjd->upid", ops.convert, spline[:, idx])
+    piece_time = rng.uniform(1.5, 6.0, size=u)
+    p_slack = c + rng.normal(scale=0.05, size=c.shape)
+    t_slack = piece_time[:, None] + rng.normal(scale=0.3, size=(u, pieces))
+    p_lambda = rng.normal(scale=0.3, size=c.shape)
+    t_lambda = rng.normal(scale=0.3, size=(u, pieces))
+    r, q = min(SLACK_EDGE_AT[0], u - 1), min(SLACK_EDGE_AT[1], pieces - 1)
+    if edge == "nan":
+        t_lambda[r, q] = np.nan
+    elif edge == "overflow":
+        p_lambda[r, q, 2, 1] = 1e38
+    elif edge == "clamp":
+        t_slack[r, q], t_lambda[r, q] = 0.1, -50.0
+    elif edge is not None:
+        raise ValueError(f"unknown slack edge {edge!r}")
+    leaves = [spline, piece_time, p_slack, t_slack, p_lambda, t_lambda]
+    if u == 1:
+        leaves = [x[0] for x in leaves]
+    kw = dict(device="cpu", dtype=torch.float64)
+    state = SolverState(*(torch.as_tensor(x, **kw) for x in leaves))
+    return device_consts(ops, **kw), cfg, state
+
+
+def slack_with_rungs(update, consts, cfg, state):
+    """``update(consts, cfg, state)`` (`solver.admm.slack_update_plain`, or
+    a copy of it in another module) with each piece's accepted rung, the
+    index its ladder's ``_first_true`` (looked up on ``update``'s module)
+    returns: (state, residual, rungs shaped as ``state.t_slack``)."""
+    import sys
+
+    module = sys.modules[update.__module__]
+    real, got = module._first_true, []
+
+    def spy(ok, dim=0):
+        got.append(real(ok, dim))
+        return got[-1]
+
+    module._first_true = spy
+    try:
+        new, res = update(consts, cfg, state)
+    finally:
+        module._first_true = real
+    return new, res, got[-1].reshape(state.t_slack.shape)
