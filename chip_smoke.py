@@ -220,9 +220,16 @@ KERNELS = {
                       "lax.cond; no Pallas site)"),
     "slack_step": ("trajopt_tpu_torch/csrc/slack.cu",
                    "trajopt_tpu/solver/admm.py:501 (slack_update, left to XLA; no Pallas site)"),
+    **{name: ("trajopt_tpu_torch/csrc/direction.cu",
+              "trajopt_tpu/solver/admm.py:271 (spline_direction), ops/gradients.py:167, "
+              "ops/kkt.py:151-185 (left to XLA around K3 and K4; no Pallas site)")
+       for name in ("dir_grad_hess", "dir_assemble", "dir_schur", "dir_finish")},
 }
 # the kernels every solve must launch (K5 runs in the clearance cross-check)
 SOLVE_KERNELS = ("smallest_k", "gjk_exact", "mod_chol", "chol_solve", "factor_solve")
+# the direction phase's kernels (`ops/cuda_direction.py`): a single UAV's
+# solve with the GMW repair and the closed-form Hessian at P <= 7
+DIRECTION_KERNELS = ("dir_grad_hess", "dir_assemble", "dir_schur", "dir_finish")
 # and every fused solve in the conditional form: its nodes' conditions
 FUSED_KERNELS = SOLVE_KERNELS + ("set_condition",)
 # the phase-2 case whose shape_timings row stands for K1 and K2 in the
@@ -1264,6 +1271,153 @@ def check_slack_step(device, log):
     return max(check_slack_case(case, device, log) for case in testing.SLACK_CASES)
 
 
+DIRECTION_FACTOR, DIRECTION_SLACK = 4.0, 1e-5   # a kernel's (the chain's) float32 error
+# against float64 may be DIRECTION_FACTOR times its plain version's on the same
+# inputs plus DIRECTION_SLACK x max |float64 value|, output by output
+
+
+def _card_f32(x, device):
+    """A container of tensors on the card, its floats in float32."""
+    import torch
+
+    return type(x)(*(t.to(device=device, dtype=torch.float32) if t.is_floating_point()
+                     else t.to(device) for t in x))
+
+
+def _cpu_f64(x):
+    import torch
+
+    if torch.is_tensor(x):
+        return x.detach().to("cpu", torch.float64 if x.is_floating_point() else x.dtype)
+    items = [_cpu_f64(t) for t in x]
+    return type(x)(*items) if hasattr(x, "_fields") else type(x)(items)
+
+
+def _flat_outputs(x):
+    """The tensors of a (nested) container of outputs, in order."""
+    import torch
+
+    return [x] if torch.is_tensor(x) else [t for v in x for t in _flat_outputs(v)]
+
+
+def hold_to_float64(label, kern, plain, ref, scales=None):
+    """``kern`` (a kernel's outputs) and ``plain`` (its plain version's on
+    the card, both float32) against ``ref`` (the plain version in float64 on
+    the same inputs), output by output: NaN and +-inf in the same places,
+    and the kernel's largest error at most DIRECTION_FACTOR times the plain
+    version's plus DIRECTION_SLACK x the output's scale: max |ref|, or
+    ``scales[i]`` where given (the size of the terms of a sum that cancels
+    to about 0).  Returns (the kernel's largest error against the plain
+    version, its largest relative error against float64, the plain
+    version's)."""
+    import torch
+
+    worst, worst_k, worst_p = 0.0, 0.0, 0.0
+    outputs = list(zip(*(map(_flat_outputs, (kern, plain, ref))), strict=True))
+    scales = scales or [None] * len(outputs)
+    for i, ((k, p, r), given) in enumerate(zip(outputs, scales, strict=True)):
+        k, p, r = (t.detach().cpu().double() for t in (k, p, r))
+        for name, t in (("kernel", k), ("plain float32", p)):
+            same = (torch.isnan(t) == torch.isnan(r)) & (torch.isinf(t) == torch.isinf(r))
+            check(bool(same.all()) and torch.equal(t[torch.isinf(r)], r[torch.isinf(r)]),
+                  f"{label}: output {i} of the {name} is not finite where float64's is")
+        fin = torch.isfinite(r)
+        if not bool(fin.any()):
+            continue
+        scale = (given or float(r[fin].abs().max())) or 1.0
+        err_k = float((k - r)[fin].abs().max()) / scale
+        err_p = float((p - r)[fin].abs().max()) / scale
+        check(err_k <= DIRECTION_FACTOR * err_p + DIRECTION_SLACK,
+              f"{label}: output {i} is {err_k:.3g} from float64 (relative), the plain version "
+              f"{err_p:.3g}")
+        worst = max(worst, float((k - p)[fin].abs().max()))
+        worst_k, worst_p = max(worst_k, err_k), max(worst_p, err_p)
+    return worst, worst_k, worst_p
+
+
+def check_direction_case(case, device, log=None):
+    """The direction phase's kernel chain on one of
+    `testing.DIRECTION_CASES` (float32, on the card): each of its four
+    kernels launched once and held to its plain slice on the same float32
+    inputs, and the whole chain (`admm.spline_direction_kernels`) to
+    `admm.spline_direction_plain` on the card, both against the plain
+    versions in float64 on the CPU on the same inputs (`hold_to_float64`);
+    the fallback flag equal to the plain version's on the card and in
+    float64.  Returns {kernel: the largest abs error against its plain
+    slice}."""
+    import torch
+    from trajopt_tpu_torch import testing
+    from trajopt_tpu_torch.ops import _cuda, cuda_chol
+    from trajopt_tpu_torch.ops import cuda_direction as cd
+    from trajopt_tpu_torch.solver import admm
+
+    name, pieces, edge = case
+    consts64, cfg, state64, planes64 = testing.direction_case(pieces, edge)
+    consts, state, planes = (_card_f32(x, device) for x in (consts64, state64, planes64))
+    # float64 copies of the float32 inputs: each stage's oracle
+    c64, s64, p64 = (_cpu_f64(x) for x in (consts, state, planes))
+    before = {k: _cuda.LAUNCHES[k] for k in cd.KERNELS}
+    errs, lines = {}, []
+
+    def stage(kernel, kern, plain, ref, scales=None):
+        errs[kernel], err_k, err_p = hold_to_float64(f"direction {name} {kernel}", kern, plain, ref,
+                                                     scales)
+        lines.append(f"{kernel} {errs[kernel]:.3g} abs (rel to float64 {err_k:.2g}, plain {err_p:.2g})")
+
+    g, h = cd.dir_grad_hess_plain(consts, cfg, state, planes)
+    stage("dir_grad_hess", cd.dir_grad_hess(consts, cfg, state, planes), (g, h),
+          cd.dir_grad_hess_plain(c64, cfg, s64, p64))
+    _, e = cuda_chol.mod_chol(h.contiguous(), want_l=False)
+    g64, h64, e64 = _cpu_f64((g, h, e))
+    asm = cd.dir_assemble_plain(consts, g, h, e)
+    stage("dir_assemble", cd.dir_assemble(consts, g, h, e), asm,
+          cd.dir_assemble_plain(c64, g64, h64, e64))
+    chol, _, x = cuda_chol.factor_solve(asm.a.contiguous(), asm.rhs.contiguous())
+    red64, x64 = _cpu_f64(asm.red), _cpu_f64(x)
+    sch = cd.dir_schur_plain(asm.red, x)
+    sch64 = cd.dir_schur_plain(red64, x64)
+    # schur_s, r_s and r_t are sums that cancel: held at the size of their terms
+    terms = (red64.a.abs() @ sch64.ds.abs() + (red64.b * sch64.dt).abs() + red64.gs.abs()).max()
+    terms = float(torch.maximum(terms, (red64.b * sch64.ds).abs().sum()
+                                + (red64.htt * sch64.dt).abs() + red64.gt.abs()))
+    schur_terms = float(red64.htt.abs() + (red64.b * x64[:, 1]).abs().sum())
+    stage("dir_schur", cd.dir_schur(asm.red, x), sch, sch64,
+          [None, schur_terms, None, None, None, terms, terms])
+    ainv_rs = cuda_chol.chol_solve(chol, sch.r_s.contiguous())
+    fin = cd.dir_finish_plain(consts, asm.red, sch, ainv_rs)
+    fin64 = cd.dir_finish_plain(c64, red64, _cpu_f64(sch), _cpu_f64(ainv_rs))
+    kern = cd.dir_finish(consts, asm.red, sch, ainv_rs)
+    check(int(kern.bad) == int(fin.bad) == int(fin64.bad),
+          f"direction {name} dir_finish: fallback {int(kern.bad)}, plain {int(fin.bad)}, "
+          f"float64 {int(fin64.bad)}")
+    stage("dir_finish", kern[:4], fin[:4], fin64[:4])
+    _sync(device)
+    for k in cd.KERNELS:
+        check(_cuda.LAUNCHES[k] == before[k] + 1, f"direction {name}: {k} not launched once")
+
+    chain = admm.spline_direction_kernels(consts, cfg, state, planes)
+    plain = admm.spline_direction_plain(consts, cfg, state, planes)
+    ref = admm.spline_direction_plain(c64, cfg, s64, p64)
+    err, err_k, err_p = hold_to_float64(f"direction {name} chain", chain, plain, ref)
+    bad = [bool(torch.isnan(t).any()) for t in chain]
+    if log is not None:
+        log(f"  direction {name} (P={pieces}): " + "; ".join(lines) + f"; chain vs plain float32 "
+            f"{err:.3g} abs, rel to float64 {err_k:.2g} (plain {err_p:.2g}); NaN {bad}")
+    return errs
+
+
+def check_direction(device, log):
+    """`check_direction_case` on every case of `testing.DIRECTION_CASES`;
+    each kernel's largest abs error against its plain slice."""
+    from trajopt_tpu_torch import testing
+
+    out = {}
+    for case in testing.DIRECTION_CASES:
+        for k, v in check_direction_case(case, device, log).items():
+            out[k] = max(out.get(k, 0.0), v)
+    return out
+
+
 EIG_TOL = 1e-5       # K6 against float64: |w - w64| <= EIG_TOL x |H|_F, block by block
 LADDER_MARGIN = 1e-3  # a ladder trial whose float64 least eigenvalue is this far
                       # (x |H|_F) from 0 has one PD verdict any float32 Cholesky must give
@@ -1602,6 +1756,8 @@ def check_kernels(device, log, seed=0, pair_diffs=None):
     lap("K4 and fused checks")
     errs["slack_step"] = check_slack_step(device, log)
     lap("slack_step checks")
+    errs.update(check_direction(device, log))
+    lap("direction kernel checks")
     batch = check_chol_calls(device, log, batch_call_inputs(device))
     for name, err in zip(("mod_chol", "chol_solve", "factor_solve"), batch):
         errs[name] = max(errs[name], err)
@@ -2136,7 +2292,9 @@ def path_kernels(cfg, coupled, pieces, fused=False):
     mode).  Under "gmw" with the closed-form Hessian the slack phase is one
     `slack_step` launch, so a block-tridiagonal solve launches no fused K3
     + K4; with any other repair (or ``grad_mode="autodiff"``) it is the
-    plain version's fused launch and `slack_step` is not launched."""
+    plain version's fused launch and `slack_step` is not launched.  The
+    direction phase's kernels (`DIRECTION_KERNELS`) run for one UAV under
+    "gmw" with the closed-form Hessian below ns = 64, and nowhere else."""
     tridiagonal = coupled is None and 9 * pieces - 3 > 64
     on = [k for k in SOLVE_KERNELS if k != "chol_solve" or not tridiagonal]
     off = []
@@ -2153,6 +2311,11 @@ def path_kernels(cfg, coupled, pieces, fused=False):
             off.append("factor_solve")
     else:
         off.append("slack_step")
+    if coupled is None and not tridiagonal and cfg.psd_method == "gmw" \
+            and cfg.grad_mode == "analytic":
+        on += DIRECTION_KERNELS
+    else:
+        off += DIRECTION_KERNELS
     return (on + ["set_condition"], off) if fused else (on, off + ["set_condition"])
 
 
@@ -3746,6 +3909,89 @@ def slack_timings(device):
     return rows
 
 
+DIRECTION_TIMED = ("bridge", "p7")   # testing.DIRECTION_CASES at P = 4 (ns 33) and 7 (ns 60)
+DIRECTION_HEADLINE = "bridge"          # the benchmark cell's shapes
+
+
+def direction_bounds(pieces, res, planes, rows):
+    """{kernel: (bytes, float32 operations)} of the direction phase's four
+    kernels at one UAV's shapes: every input read once and every output
+    written once; the operations counted from each kernel's loops (the
+    hull, the plane distances, barriers and their K sums, the bound terms,
+    then per Hessian entry its sums over the subdivisions' points and bound
+    terms; the reduced system's sums and products)."""
+    ns = 3 * (rows - 4)
+    n_plane, n_bound = res * 6, res * 9
+    per_piece = (res * 18 * 12 + n_plane * planes * 70 + n_bound * 100
+                 + 324 * (n_plane * 3 + n_bound * 8) + 18 * (n_plane * 2 + n_bound * 6 + 100))
+    return {
+        "dir_grad_hess": (4 * (rows * 3 + pieces * res * 36 + res + pieces * 36
+                               + pieces * res * planes * 4 + 1 + 2 * pieces * 18 + 2 * pieces
+                               + pieces * 19 + pieces * 361)
+                          + pieces * res * planes + pieces * 48, pieces * per_piece),
+        "dir_assemble": (4 * (pieces * (2 * 19 + 361) + 2 * ns * ns + 2 * ns + 2) + pieces * 48,
+                         ns * ns + 2 * ns + 2 * pieces),
+        "dir_schur": (4 * (ns * ns + 4 * ns + 2 + 2 * ns + 4), 2 * ns * ns + 12 * ns),
+        "dir_finish": (4 * (5 * ns + 5 + 3 * rows + 3) + 4, 12 * ns),
+    }
+
+
+def direction_timings(device):
+    """The direction phase's four kernels at `DIRECTION_TIMED`'s shapes: per
+    kernel its ms per call between CUDA events (kernel, plain, plain,
+    kernel, each one's best), its device ms (50 launches in one CUDA graph),
+    its plain slice's ms per call and device ms, and the bound
+    (`direction_bounds`); then a row "chain": `admm.spline_direction_kernels`
+    (its seven launches, K3, K3+K4 and K4 among them) beside
+    `admm.spline_direction_plain`, both captured the same way.  [row]"""
+    import torch
+    from trajopt_tpu_torch import testing
+    from trajopt_tpu_torch.ops import cuda_chol
+    from trajopt_tpu_torch.ops import cuda_direction as cd
+    from trajopt_tpu_torch.solver import admm
+
+    rows = []
+    for name, pieces, edge in (c for c in testing.DIRECTION_CASES if c[0] in DIRECTION_TIMED):
+        consts64, cfg, state64, planes64 = testing.direction_case(pieces, edge)
+        consts, state, planes = (_card_f32(x, device) for x in (consts64, state64, planes64))
+        g, h = cd.dir_grad_hess(consts, cfg, state, planes)
+        _, e = cuda_chol.mod_chol(h, want_l=False)
+        asm = cd.dir_assemble(consts, g, h, e)
+        chol, _, x = cuda_chol.factor_solve(asm.a, asm.rhs)
+        sch = cd.dir_schur(asm.red, x)
+        ainv_rs = cuda_chol.chol_solve(chol, sch.r_s)
+        calls = {
+            "dir_grad_hess": (lambda: cd.dir_grad_hess(consts, cfg, state, planes),
+                              lambda: cd.dir_grad_hess_plain(consts, cfg, state, planes)),
+            "dir_assemble": (lambda: cd.dir_assemble(consts, g, h, e),
+                             lambda: cd.dir_assemble_plain(consts, g, h, e)),
+            "dir_schur": (lambda: cd.dir_schur(asm.red, x), lambda: cd.dir_schur_plain(asm.red, x)),
+            "dir_finish": (lambda: cd.dir_finish(consts, asm.red, sch, ainv_rs),
+                           lambda: cd.dir_finish_plain(consts, asm.red, sch, ainv_rs)),
+        }
+        bounds = direction_bounds(pieces, consts.res, planes.mask.shape[-1],
+                                  consts.trajectory_num)
+        shape = f"[{pieces},{consts.res},{planes.mask.shape[-1]}] ns={asm.a.shape[-1]}"
+        with admm.full_f32_matmul():
+            for kernel, (kern, plain) in calls.items():
+                bound, by = bound_ms(*bounds[kernel])
+                k1, p1, p2, k2 = time_ms(kern), time_ms(plain), time_ms(plain), time_ms(kern)
+                rows.append(dict(kernel=kernel, case=name, shape=shape, ms=min(k1, k2),
+                                 device_ms=device_ms(kern), plain_ms=min(p1, p2),
+                                 plain_device_ms=device_ms(plain), library_ms=None,
+                                 library_device_ms=None, bound_ms=bound, bound_by=by))
+            kern = lambda: admm.spline_direction_kernels(consts, cfg, state, planes)
+            plain = lambda: admm.spline_direction_plain(consts, cfg, state, planes)
+            bound, by = bound_ms(sum(b[0] for b in bounds.values()),
+                                 sum(b[1] for b in bounds.values()))
+            k1, p1, p2, k2 = time_ms(kern), time_ms(plain, 5), time_ms(plain, 5), time_ms(kern)
+            rows.append(dict(kernel="chain", case=name, shape=shape, ms=min(k1, k2),
+                             device_ms=device_ms(kern), plain_ms=min(p1, p2),
+                             plain_device_ms=device_ms(plain), library_ms=None,
+                             library_device_ms=None, bound_ms=bound, bound_by=by))
+    return rows
+
+
 def psd_timings(device):
     """K6 at each solver call shape of `psd_call_inputs` (`eig_shape_timings`,
     with its latency floor, `eig_floor`) and K3's plain mode at each of the
@@ -3877,7 +4123,7 @@ def time_fused_calls(port, out_path):
     return 0
 
 
-def shape_counts(names=SOLVE_KERNELS + ("eigvalsh", "slack_step")):
+def shape_counts(names=SOLVE_KERNELS + ("eigvalsh", "slack_step") + DIRECTION_KERNELS):
     """{kernel: {call shape: launches}} since the last reset of the counts."""
     from trajopt_tpu_torch.ops import _cuda
 
@@ -4089,6 +4335,17 @@ def main() -> int:
             f"{r['device_ms']:.4f} (busy {r['busy_ms']:.4f}), plain {r['plain_ms']:.4f}, bound "
             f"{r['bound_ms']:.5f} ({r['bound_by']})")
     times["slack_step"] = next(r for r in slack_rows if r["case"] == SLACK_HEADLINE)
+    direction_rows = direction_timings(device)
+    log("  the direction phase's kernels at the bridge's shapes and at P = 7 (ms per call / "
+        "device ms; the plain slice's ms per call / device ms; bound), then the whole chain "
+        "(its 7 launches) beside spline_direction_plain:")
+    for r in direction_rows:
+        log(f"    {r['kernel']} {r['shape']} ({r['case']}): kernel {r['ms']:.4f} / "
+            f"{r['device_ms']:.4f}, plain {r['plain_ms']:.4f} / {r['plain_device_ms']:.4f}, "
+            f"bound {r['bound_ms']:.5f} ({r['bound_by']})")
+    for name in DIRECTION_KERNELS:
+        times[name] = next(r for r in direction_rows
+                           if r["kernel"] == name and r["case"] == DIRECTION_HEADLINE)
     sc = times["set_condition"] = set_condition_timings(device)
     log(f"  set_condition: one device_cond node (set_condition, an IF/ELSE node, one-element "
         f"sides) {sc['ms']:.5f} ms a node in a chain of 50 in one graph (the select form's "
@@ -4126,6 +4383,8 @@ def main() -> int:
     path["gjk_fw"] = f"u{FLEET} coupled pair clearance"
     path["eigvalsh"] = f"phase 8 u{FLEET} coupled eigh"
     path["set_condition"] = f"u{FLEET} coupled fused"
+    for name in DIRECTION_KERNELS:
+        path[name] = f"single p{SLICE_PIECES[0]}"
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         tm = times[name]
@@ -4152,6 +4411,9 @@ def main() -> int:
             kernels[-1]["latency_floor"] = floor_eig
         if name == "slack_step":
             kernels[-1]["by_call_shape"] = slack_rows
+        if name in DIRECTION_KERNELS:
+            kernels[-1]["by_call_shape"] = [r for r in direction_rows if r["kernel"] == name]
+            kernels[-1]["chain"] = [r for r in direction_rows if r["kernel"] == "chain"]
         if name == "gjk_fw":
             kernels[-1]["by_call_shape"] = [r for r in rows if r["kernel"] == name]
             kernels[-1]["group_sweep_device_ms"] = sweep

@@ -322,3 +322,80 @@ def test_slack_closed_form_matches_torch_func(seed, piece, t):
     eye = torch.eye(19, **F64)
     _close(g * mask, g_ref * mask)
     _close(torch.where(keep, h, eye), torch.where(keep, h_ref, eye))
+
+
+# ---------------------------------------------------------------------------
+# the direction phase's kernel chain (ops/cuda_direction.py): its plain
+# versions and the dispatch
+# ---------------------------------------------------------------------------
+
+
+def _direction_case(name, dtype):
+    from trajopt_tpu_torch import testing
+
+    _, pieces, edge = next(c for c in testing.DIRECTION_CASES if c[0] == name)
+    consts, cfg, state, planes = testing.direction_case(pieces, edge)
+    cast = lambda x: type(x)(*(t.to(dtype) if t.is_floating_point() else t for t in x))
+    return cast(consts), cfg, cast(state), cast(planes)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("name", ["bridge", "planes", "gmw", "vel", "fallback", "p7"])
+def test_direction_slices_compose_to_the_plain_path(name, dtype):
+    """On the CPU the chain of the four kernels' plain versions with K3's,
+    K3+K4's and K4's (`admm.spline_direction_kernels`) is
+    `admm.spline_direction_plain` bit for bit, NaN in the same places, on
+    every case of `testing.DIRECTION_CASES`, in float64 and float32."""
+    consts, cfg, state, planes = _direction_case(name, dtype)
+    got = admm.spline_direction_kernels(consts, cfg, state, planes)
+    want = admm.spline_direction_plain(consts, cfg, state, planes)
+    for a, b in zip(got, want, strict=True):
+        assert a.dtype == b.dtype == dtype
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+def test_spline_direction_takes_the_plain_path_off_the_kernels_conditions(monkeypatch):
+    """`cuda_direction.engages` (what `admm.spline_direction` dispatches on)
+    holds for a single UAV's float32 spline on the card under "gmw" with
+    the closed-form Hessian at P <= 7, and for nothing else: not the CPU,
+    float64, a fleet's spline, ``eigh``, ``ladder``, ``autodiff`` or P = 8.
+    On the CPU `spline_direction` runs `spline_direction_plain` and
+    launches none of the four kernels; forced to engage there, it runs the
+    chain (`spline_direction_kernels`) to the same bits."""
+    import types
+
+    from trajopt_tpu_torch.ops import _cuda
+    from trajopt_tpu_torch.ops import cuda_direction as cd
+    from trajopt_tpu_torch.ops import splines as tsp
+
+    consts, cfg, state, planes = _direction_case("planes", torch.float64)
+    consts8 = tt.device_consts(tsp.build_spline_ops(8, cfg.res), **F64)
+    card = lambda dtype=torch.float32, ndim=2: types.SimpleNamespace(
+        device=torch.device("cuda"), dtype=dtype, ndim=ndim)
+    assert cd.engages(consts, cfg, card())
+    assert cd.engages(tt.device_consts(tsp.build_spline_ops(7, cfg.res), **F64), cfg, card())
+    assert not cd.engages(consts, cfg, state.spline.float())
+    assert not cd.engages(consts, cfg, card(torch.float64))
+    assert not cd.engages(consts, cfg, card(ndim=3))
+    for options in (dict(psd_method="eigh"), dict(psd_method="ladder"), dict(grad_mode="autodiff")):
+        assert not cd.engages(consts, cfg.replace(**options), card())
+    assert not cd.engages(consts8, cfg, card())
+
+    calls = []
+    for name in ("spline_direction_plain", "spline_direction_kernels"):
+        real = getattr(admm, name)
+        monkeypatch.setattr(admm, name, lambda *a, real=real, name=name: calls.append(name)
+                            or real(*a))
+    before = dict(_cuda.LAUNCHES)
+    for options in ({}, dict(psd_method="eigh"), dict(psd_method="ladder"),
+                    dict(grad_mode="autodiff")):
+        admm.spline_direction(consts, cfg.replace(**options), state, planes)
+    assert calls == ["spline_direction_plain"] * 4
+    assert {k: _cuda.LAUNCHES[k] for k in cd.KERNELS} == {k: before[k] for k in cd.KERNELS}
+    want = admm.spline_direction(consts, cfg, state, planes)
+    monkeypatch.setattr(cd, "engages", lambda *a: True)
+    calls.clear()
+    got = admm.spline_direction(consts, cfg, state, planes)
+    assert calls == ["spline_direction_kernels"]
+    for a, b in zip(got, want, strict=True):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

@@ -180,7 +180,7 @@ def test_device_recorder_buffer_and_plain_mark():
     assert [m for m, _ in rec.marks()] == [0, 1, 2]
     assert rec.dropped() == 2
     assert rec.counters() == {"planes": 5, "ccd_live_segments": 0, "armijo_trials": 8,
-                              "slack_rungs": 3}
+                              "slack_rungs": 3, "direction_fallbacks": 0}
     rec.reset()
     assert rec.marks() == [] and rec.dropped() == 0
     assert set(rec.counters().values()) == {0}
@@ -216,8 +216,9 @@ def test_slack_update_is_the_frozen_reference_with_its_rungs_counted(case):
 def test_trace_report_reports_slack_rungs_and_one_cloud_counts_the_same():
     """`tools/trace_report.py`'s stretch and summary on a stand-in planner
     (fused CPU solves of this file's problem): every counter of
-    `trace.COUNTERS`, ``slack_rungs`` among them, is reported an iteration,
-    and two plans of one cloud count the same."""
+    `trace.COUNTERS`, ``slack_rungs`` and ``direction_fallbacks`` among
+    them, is reported an iteration, and two plans of one cloud count the
+    same."""
     spec = importlib.util.spec_from_file_location("trace_report",
                                                   CHECKOUT / "tools" / "trace_report.py")
     report = importlib.util.module_from_spec(spec)
@@ -235,11 +236,48 @@ def test_trace_report_reports_slack_rungs_and_one_cloud_counts_the_same():
     stretches = [report.stretch(Planner(), pool, pool[:1], "cpu", on) for on in (False, True)]
     summary = report.summary(stretches)
     assert set(summary["counters_per_iter"]) == set(trace.COUNTERS)
-    assert "slack_rungs" in trace.COUNTERS
+    assert {"slack_rungs", "direction_fallbacks"} <= set(trace.COUNTERS)
     assert summary["same_cloud_same_counters"]
     first, _, again = stretches[1]["traced"]
     assert first["counters"] == again["counters"]
     assert first["counters"]["slack_rungs"] >= 0
+    assert first["counters"]["direction_fallbacks"] == 0
+
+
+def test_bridge_plan_counts_one_direction_fallback_at_its_start():
+    """A fused plan of the bridge (P = 4, a 1500-point cloud, on the CPU in
+    float64) counts one ``direction_fallbacks``, as the host-stepped solve
+    does: the start is stationary for the spline subproblem (slacks on the
+    spline, duals 0, no plane or bound in its band), so the first
+    iteration's gradient is 0, wolfe is 0 and not > 0, and the fallback's
+    direction -g is 0; every later iteration takes the Newton direction."""
+    cfg = tconfig.TrajOptConfig(ks=1e-8, max_planes=16, max_ccd_candidates=16)
+    cloud, wp = gen.bridge_scene(n_points=1500, seed=0, n_pieces=4)
+    ops = sp.build_spline_ops(4, cfg.res)
+    consts, scene = tt.device_consts(ops, **F64), tt.make_scene(cloud, **F64)
+    state0 = tt.init_state(ops, wp, cfg.init_piece_time, **F64)
+    with trace.on() as host:
+        _, history = driver.solve(consts, cfg, state0, scene, max_iters=ITERS)
+        _, it, _ = driver.solve_fused(consts, cfg, state0, scene, max_iters=ITERS)
+    assert int(it) == len(history) == ITERS
+    assert history[0]["gnorm"] == 0.0 and all(h["gnorm"] > 0 for h in history[1:])
+    assert graph.LAST_RUN.counters()["direction_fallbacks"] == 1
+    assert host.counters()["direction_fallbacks"] == 1
+
+
+@pytest.mark.parametrize("kernels", [False, True], ids=["plain", "chain"])
+def test_direction_fallbacks_counts_the_fallback(kernels):
+    """`admm.spline_direction` counts 1 into ``direction_fallbacks`` where
+    its direction takes the steepest-descent fallback (a NaN t_lambda:
+    `testing.DIRECTION_CASES`' "fallback") and 0 where it does not, on the
+    plain path and on the kernel chain (its plain versions on the CPU)."""
+    step = admm.spline_direction_kernels if kernels else admm.spline_direction_plain
+    for edge, want in (("nan", 1), ("planes", 0)):
+        consts, cfg, state, planes = testing.direction_case(4, edge)
+        with trace.on() as rec:
+            sd = step(consts, cfg, state, planes)
+        assert rec.counters()["direction_fallbacks"] == want
+        assert bool(torch.isnan(sd.wolfe)) is (want == 1)
 
 
 # ---------------------------------------------------------------------------
@@ -451,3 +489,48 @@ def test_slack_step_launches_once_a_step_on_card():
         before = _cuda.LAUNCHES["slack_step"]
         driver.solve(consts, other, state0, scene, max_iters=2)
         assert _cuda.LAUNCHES["slack_step"] == before
+
+
+@pytest.mark.cuda
+def test_direction_kernels_launch_once_a_step_on_card():
+    """On the card the direction phase of a single UAV's step is seven
+    launches: each of `cuda_direction`'s four kernels once a step in the
+    host-stepped solve, and in the fused solve one kernel node each in the
+    captured step, executed once an iteration (the nodes' tallies), beside
+    one node each of K3 (`mod_chol`), K3+K4 (`factor_solve`) and K4
+    (`chol_solve`); ``direction_fallbacks`` the same on a second launch.
+    Under ``psd_method="eigh"`` and ``"ladder"``, ``grad_mode="autodiff"``
+    and at P = 8 the plain version runs and none of the four is launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (on the card: python -m pytest --noconftest -m cuda "
+                    "tests/test_torch_trace.py)")
+    from trajopt_tpu_torch.ops import _cuda, cuda_direction
+
+    cfg, consts, scene, state0 = single_problem("cuda", torch.float32)
+    before = {k: _cuda.LAUNCHES[k] for k in cuda_direction.KERNELS}
+    _, history = driver.solve(consts, cfg, state0, scene, max_iters=ITERS)
+    for k in cuda_direction.KERNELS:
+        assert _cuda.LAUNCHES[k] - before[k] == len(history)
+    with trace.on():
+        _, it, _ = driver.solve_fused(consts, cfg, state0, scene, max_iters=ITERS)
+        torch.cuda.synchronize()
+        run = graph.LAST_RUN
+        for k in cuda_direction.KERNELS + ("mod_chol", "factor_solve", "chol_solve"):
+            assert run.kernel_nodes[k] == 1, k
+            assert run.executions()[k] == int(it), k
+        first = run.counters()
+        driver.solve_fused(consts, cfg, state0, scene, max_iters=ITERS)
+        torch.cuda.synchronize()
+        assert graph.LAST_RUN.hit and graph.LAST_RUN.counters() == first
+    assert first["direction_fallbacks"] == 0
+    kw = dict(device="cuda", dtype=torch.float32)
+    wp8 = np.stack([np.linspace(-3.0, 3.0, 9), np.full(9, 1.7), np.zeros(9)], axis=1)
+    ops8 = sp.build_spline_ops(8, cfg.res)
+    p8 = (tt.device_consts(ops8, **kw), tt.init_state(ops8, wp8, cfg.init_piece_time, **kw))
+    for options, (consts_o, state_o) in ((dict(psd_method="eigh"), (consts, state0)),
+                                         (dict(psd_method="ladder"), (consts, state0)),
+                                         (dict(grad_mode="autodiff"), (consts, state0)),
+                                         ({}, p8)):
+        before = {k: _cuda.LAUNCHES[k] for k in cuda_direction.KERNELS}
+        driver.solve(consts_o, dataclasses.replace(cfg, **options), state_o, scene, max_iters=2)
+        assert {k: _cuda.LAUNCHES[k] for k in cuda_direction.KERNELS} == before, options

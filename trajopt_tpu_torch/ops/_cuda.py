@@ -27,7 +27,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("topk.cu", "gjk.cu", "gjk_fw.cu", "chol.cu", "eig.cu", "graph_cond.cu", "slack.cu")
+SOURCES = ("topk.cu", "gjk.cu", "gjk_fw.cu", "chol.cu", "eig.cu", "graph_cond.cu", "slack.cu",
+           "direction.cu")
 HEADERS = ("chol_device.cuh",)   # included by sources; hashed with them
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,7 +44,8 @@ FLAGS = (
 # (`runtime.graph.FusedRun.kernel_nodes` keeps the per-capture count,
 # `FusedRun.executions` the executions of the last launch).
 LAUNCHES = {"smallest_k": 0, "gjk_exact": 0, "gjk_fw": 0, "mod_chol": 0, "chol_solve": 0,
-            "factor_solve": 0, "eigvalsh": 0, "set_condition": 0, "slack_step": 0}
+            "factor_solve": 0, "eigvalsh": 0, "set_condition": 0, "slack_step": 0,
+            "dir_grad_hess": 0, "dir_assemble": 0, "dir_schur": 0, "dir_finish": 0}
 LAUNCH_SHAPES: collections.Counter = collections.Counter()
 
 _lib: ctypes.CDLL | None = None
@@ -63,6 +65,10 @@ _SIGNATURES = {
     "trajopt_slack_step": [_vp, _int, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
                            _vp, _vp, _int, _int, _int, _float, _float, _float, _float, _int,
                            _float, _vp],
+    "trajopt_dir_grad_hess": [_vp] * 15 + [_int] * 3 + [_float] * 5 + [_vp],
+    "trajopt_dir_assemble": [_vp] * 8 + [_int, _int, _vp],
+    "trajopt_dir_schur": [_vp, _int, _vp, _vp, _int, _vp, _vp, _vp, _vp, _vp, _vp, _int, _vp],
+    "trajopt_dir_finish": [_vp, _vp, _int, _vp, _vp, _int] + [_vp] * 9 + [_int, _int, _vp],
     "trajopt_eigvalsh": [_vp, _vp, _int, _int, _vp],
     "trajopt_eig_probe": [_vp, _int, _vp],
     "trajopt_set_condition": [_u64, _vp, _int, _vp, _vp],

@@ -173,19 +173,30 @@ class LocalSolve(NamedTuple):
     chol: torch.Tensor      # [ns, ns] lower Cholesky factor of A
 
 
-def local_solve(kkt: ReducedKKT) -> LocalSolve:
-    # tiny relative ridge keeps the f32 factorization of the (PSD by
-    # construction) block safely positive definite
+def ridged_system(kkt: ReducedKKT) -> tuple[torch.Tensor, torch.Tensor]:
+    """The matrix `local_solve` factors and its right-hand sides:
+    (a + ridge I [..., ns, ns], [gs b] [..., ns, 2]).  The tiny relative
+    ridge keeps the f32 factorization of the (PSD by construction) block
+    safely positive definite."""
     ns = kkt.a.shape[-1]
     ridge = 1e-6 * torch.diagonal(kkt.a, dim1=-2, dim2=-1).sum(-1) / ns
     a = kkt.a + ridge[..., None, None] * torch.eye(ns, dtype=kkt.a.dtype, device=kkt.a.device)
-    rhs = torch.stack([kkt.gs, kkt.b], dim=-1)           # [..., ns, 2]
-    chol, sol = _factor_and_solve(a, rhs)
+    return a, torch.stack([kkt.gs, kkt.b], dim=-1)
+
+
+def schur_terms(kkt: ReducedKKT, sol: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """(A^-1 gs, A^-1 b, schur_s, schur_r, gnorm) from ``sol`` = [A^-1 gs,
+    A^-1 b] [..., ns, 2]."""
     ainv_gs, ainv_b = sol[..., 0], sol[..., 1]
     schur_s = kkt.htt - torch.einsum("...i,...i->...", kkt.b, ainv_b)
     schur_r = kkt.gt - torch.einsum("...i,...i->...", kkt.b, ainv_gs)
     gnorm = torch.sqrt(torch.sum(kkt.gs ** 2, dim=-1) + kkt.gt ** 2)
-    return LocalSolve(ainv_gs, ainv_b, schur_s, schur_r, gnorm, chol)
+    return ainv_gs, ainv_b, schur_s, schur_r, gnorm
+
+
+def local_solve(kkt: ReducedKKT) -> LocalSolve:
+    chol, sol = _factor_and_solve(*ridged_system(kkt))
+    return LocalSolve(*schur_terms(kkt, sol), chol)
 
 
 def finish_direction(
@@ -206,10 +217,17 @@ def correct_direction(
     """One iterative-refinement residual for the arrowhead system:
     (r_s, r_t, A^-1 r_s).  Recovers the digits f32 loses on ill-conditioned
     blocks."""
+    r_s, r_t = refinement_residual(red, ds, dt)
+    return r_s, r_t, _factor_solve(ls.chol, r_s)
+
+
+def refinement_residual(
+    red: ReducedKKT, ds: torch.Tensor, dt: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The arrowhead system's residual at (ds, dt): (r_s, r_t)."""
     r_s = torch.einsum("...ij,...j->...i", red.a, ds) + red.b * dt[..., None] + red.gs
     r_t = torch.einsum("...i,...i->...", red.b, ds) + red.htt * dt + red.gt
-    ainv_rs = _factor_solve(ls.chol, r_s)
-    return r_s, r_t, ainv_rs
+    return r_s, r_t
 
 
 def spread_direction(consts: SplineConsts, ds: torch.Tensor) -> torch.Tensor:

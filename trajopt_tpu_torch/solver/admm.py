@@ -13,7 +13,8 @@ device-to-host sync); in the fused drivers' CUDA graph, an IF node.
 Under the tracing switch (`runtime.trace.on`) the step marks where each of
 its phases starts (`trace.PHASES`: planes, direction, ccd, armijo, slack,
 diag) and where it ends, and counts its planes, the Armijo trial
-energies it evaluates and the slack ladder's accepted rungs.
+energies it evaluates, the slack ladder's accepted rungs and the
+directions that took the steepest-descent fallback.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from ..config import TrajOptConfig
 from ..ops import broadphase as bp
 from ..ops import ccd as ccd_ops
 from ..ops import cuda_chol
+from ..ops import cuda_direction
 from ..ops import cuda_slack
 from ..ops import cuda_topk
 from ..ops import energies as en
@@ -211,7 +213,44 @@ def spline_direction(
     consts: SplineConsts, cfg: TrajOptConfig, state: SolverState, planes: Planes
 ) -> SplineDirection:
     """Reduced Newton direction with one iterative-refinement round and a
-    NaN-proof steepest-descent fallback."""
+    NaN-proof steepest-descent fallback.
+
+    On the card, for one UAV under ``psd_method="gmw"`` and
+    ``grad_mode="analytic"`` with a reduced system that factors densely
+    (P <= 7; `cuda_direction.engages`), the phase is seven launches: the
+    four of `ops/cuda_direction.py` around K3, K3+K4 and K4
+    (`spline_direction_kernels`).  Everywhere else (the CPU, ``eigh`` and
+    ``ladder``, ``grad_mode="autodiff"``, P >= 8) it is
+    `spline_direction_plain`.  Counts an iteration whose direction took the
+    fallback into the ``direction_fallbacks`` trace counter."""
+    if not cuda_direction.engages(consts, cfg, state.spline):
+        return spline_direction_plain(consts, cfg, state, planes)
+    return spline_direction_kernels(consts, cfg, state, planes)
+
+
+def spline_direction_kernels(
+    consts: SplineConsts, cfg: TrajOptConfig, state: SolverState, planes: Planes
+) -> SplineDirection:
+    """`spline_direction` as the chain of `cuda_direction`'s four kernels
+    and K3, K3+K4 and K4, each wrapper's plain version on the CPU (where
+    the chain is `spline_direction_plain` bit for bit)."""
+    g, h = cuda_direction.dir_grad_hess(consts, cfg, state, planes)
+    _, e = cuda_chol.mod_chol(h, want_l=False)
+    asm = cuda_direction.dir_assemble(consts, g, h, e)
+    chol, _, x = cuda_chol.factor_solve(asm.a, asm.rhs)
+    sch = cuda_direction.dir_schur(asm.red, x)
+    fin = cuda_direction.dir_finish(consts, asm.red, sch, cuda_chol.chol_solve(chol, sch.r_s))
+    trace.count("direction_fallbacks", lambda: fin.bad)
+    return SplineDirection(*fin[:4])
+
+
+def spline_direction_plain(
+    consts: SplineConsts, cfg: TrajOptConfig, state: SolverState, planes: Planes
+) -> SplineDirection:
+    """`spline_direction` in plain PyTorch: the gradient and Hessian of
+    ``cfg.grad_mode``, the PSD repair of ``cfg.psd_method``, the reduced KKT
+    (one K3+K4 launch up to ns = 64, the block-tridiagonal factor above),
+    one refinement round with K4 and the fallback."""
     g, h = gr.piece_grads_and_hessians(
         consts, cfg, state.spline, state.piece_time, planes,
         state.p_slack, state.t_slack, state.p_lambda, state.t_lambda,
@@ -220,20 +259,10 @@ def spline_direction(
     ls = kkt.local_solve(red)
     ds, dt = kkt.finish_direction(ls, ls.schur_s, ls.schur_r)
     rs, rt, ainv_rs = kkt.correct_direction(red, ls, ds, dt)
-    s_safe = torch.maximum(ls.schur_s, 1e-5 * torch.clamp(ls.schur_s.abs(), min=1.0))
-    cdt = -(rt - red.b @ ainv_rs) / s_safe
-    ds = ds + (-ainv_rs - cdt * ls.ainv_b)
-    dt = dt + cdt
-    wolfe = -(ds @ red.gs + dt * red.gt)
-    finite = torch.isfinite(wolfe) & torch.all(torch.isfinite(ds)) & torch.isfinite(dt)
-    bad = ~finite | ~(wolfe > 0)
-    ds = torch.where(bad, -red.gs, ds)
-    dt = torch.where(bad, -red.gt, dt)
-    wolfe = torch.where(bad, torch.sum(red.gs ** 2) + red.gt ** 2, wolfe)
-    return SplineDirection(
-        direction=kkt.spread_direction(consts, ds), t_direction=dt, wolfe=wolfe,
-        gnorm=ls.gnorm,
-    )
+    fin = cuda_direction.dir_finish_plain(
+        consts, red, cuda_direction.Schur(ls.ainv_b, ls.schur_s, ls.gnorm, ds, dt, rs, rt), ainv_rs)
+    trace.count("direction_fallbacks", lambda: fin.bad)
+    return SplineDirection(*fin[:4])
 
 
 def armijo_ok(e0, wolfe, step, e):

@@ -1,8 +1,9 @@
 """Edge-case inputs and a float64 oracle for checking K1 (`smallest_k`), K2
 (`gjk_exact`), K3/K4 (`mod_chol`, `chol_solve`, `factor_solve`), K5
-(`gjk_diffset`, `gjk_pairs`), K6 (`eigvalsh`) and `slack_step`
-(`slack_cases`) where their decisions and their routes are most fragile,
-and a float32 model of K6's algorithm (`eig_kernel_model`).
+(`gjk_diffset`, `gjk_pairs`), K6 (`eigvalsh`), `slack_step`
+(`slack_cases`) and the direction phase's kernels (`direction_case`)
+where their decisions and their routes are most fragile, and a float32
+model of K6's algorithm (`eig_kernel_model`).
 
 ``chip_smoke.py`` holds the kernels to their plain versions on these inputs
 on the card; ``tests/test_torch_kernels.py`` pins the plain versions to the
@@ -509,3 +510,77 @@ def slack_with_rungs(update, consts, cfg, state):
     finally:
         module._first_true = real
     return new, res, got[-1].reshape(state.t_slack.shape)
+
+
+# The direction phase's kernel chain (`solver.admm.spline_direction_kernels`)
+# against `solver.admm.spline_direction_plain`: (name, pieces, edge), one UAV
+# at the bridge cell's res 8 and 16 planes.  Edges: "dead" (every plane slot
+# masked, as on the bridge), "planes" (half the slots live, some in the
+# barrier band), "gmw" (live planes 1e-5 to 1e-3 from contact: each piece's
+# GMW repair boosts), "vel" and "acc" (the piece time set so that the
+# largest velocity, or acceleration, bound term lies in its barrier band,
+# planes live), "nan" (one t_lambda NaN: the Newton step is NaN and the
+# steepest-descent fallback is taken).  P = 7 is the largest reduced
+# system the chain takes (ns = 60).
+DIRECTION_CASES = (
+    ("bridge", 4, "dead"),
+    ("planes", 4, "planes"),
+    ("gmw", 4, "gmw"),
+    ("vel", 4, "vel"),
+    ("fallback", 4, "nan"),
+    ("p7", 7, "acc"),
+)
+DIRECTION_EDGE_PIECE = 1   # the piece of the "nan" edge
+
+
+def direction_case(pieces: int, edge: str, seed: int = 0):
+    """(consts, cfg, state, planes) for `spline_direction` in float64 on the
+    CPU: one UAV of ``pieces`` pieces on a gently curved line, its spline,
+    slacks and duals perturbed from ``seed``, and a random plane table
+    shaped by ``edge`` (`DIRECTION_CASES`)."""
+    from .config import TrajOptConfig
+    from .ops import energies as en
+    from .ops import splines as sp
+    from .types import Planes, device_consts, init_state
+
+    if edge not in ("dead", "planes", "gmw", "vel", "acc", "nan"):
+        raise ValueError(f"unknown direction edge {edge!r}")
+    rng = np.random.default_rng(seed)
+    cfg = TrajOptConfig(res=8, max_planes=16)
+    ops = sp.build_spline_ops(pieces, cfg.res)
+    u = np.linspace(0.0, 1.0, pieces + 1)
+    wp = np.stack([8.0 * u - 4.0, 1.5 + 0.3 * np.sin(3.0 * u), 0.2 * np.cos(2.0 * u)], axis=1)
+    kw = dict(device="cpu", dtype=torch.float64)
+    state = init_state(ops, wp, cfg.init_piece_time, **kw)
+    consts = device_consts(ops, **kw)
+    spline = state.spline.clone()
+    spline[2:-2] += torch.as_tensor(rng.normal(scale=0.05, size=spline[2:-2].shape), **kw)
+    noise = lambda scale, like: torch.as_tensor(rng.normal(scale=scale, size=like.shape), **kw)
+    state = state._replace(spline=spline, p_slack=state.p_slack + noise(0.05, state.p_slack),
+                           t_slack=state.t_slack + noise(0.5, state.t_slack),
+                           p_lambda=noise(0.1, state.p_lambda), t_lambda=noise(0.1, state.t_lambda))
+    hull = en.seg_cps(consts, spline).numpy()                     # [P,R,n,3]
+    c = rng.normal(size=hull.shape[:2] + (cfg.max_planes, 3))
+    c /= np.linalg.norm(c, axis=-1, keepdims=True)
+    s_min = np.einsum("prjd,prkd->prkj", hull, c).min(-1)
+    gap = (1e-5, 1e-3) if edge == "gmw" else (-0.02, 0.15)
+    d = -s_min + rng.uniform(*gap, size=s_min.shape)
+    mask = rng.random(s_min.shape) < (0.0 if edge == "dead" else 0.5)
+    planes = Planes(torch.as_tensor(c, **kw), torch.as_tensor(d, **kw), torch.as_tensor(mask))
+    if edge in ("vel", "acc"):
+        # |v| / (w t) (|a| / (w^2 t^2)) of the largest term at half the margin
+        # below its limit
+        w = consts.seg_weight.numpy()[:, None]
+        vel = 5.0 * np.diff(hull, axis=2)
+        if edge == "vel":
+            top = (np.linalg.norm(vel, axis=-1) / w).max()
+            t = top / (cfg.vel_limit - cfg.margin / 2)
+        else:
+            top = (np.linalg.norm(4.0 * np.diff(vel, axis=2), axis=-1) / (w * w)).max()
+            t = np.sqrt(top / (cfg.acc_limit - cfg.margin / 2))
+        state = state._replace(piece_time=torch.tensor(t, **kw))
+    if edge == "nan":
+        t_lambda = state.t_lambda.clone()
+        t_lambda[DIRECTION_EDGE_PIECE] = float("nan")
+        state = state._replace(t_lambda=t_lambda)
+    return consts, cfg, state, planes
